@@ -13,7 +13,11 @@ Port decisions:
 * state-dict keys and shapes are the reference's, exactly what the JAX
   package's ``export_generator`` emits, so a reference checkpoint's
   ``generator_ema`` loads with ``load_state_dict(strict=True)``;
-* the images are ``[B, domains, T, H, W]`` in f32 whatever the compute dtype.
+* the images are ``[B, domains, T, H, W]`` in f32 whatever the compute dtype;
+* with ``config.remat`` and gradients on, each styled-conv and output block
+  at >= ``remat_min_px`` pixels is recomputed in the backward pass
+  (``torch.utils.checkpoint``, non-reentrant, so path length's double
+  backward goes through it), as the JAX package's ``nn.remat`` blocks are.
 """
 
 from __future__ import annotations
@@ -23,11 +27,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multi_stylegan_torch.models.config import GeneratorConfig
 from multi_stylegan_torch.nn.equalized import EqualizedLinear, FusedLeakyReLU
 from multi_stylegan_torch.nn.normalization import pixel_norm
-from multi_stylegan_torch.ops.blur import blur, blur_padding, make_blur_kernel, upsample2x
+from multi_stylegan_torch.ops.blur import Blur, blur, blur_padding, upsample2x
 from multi_stylegan_torch.ops.modulated_conv import (
     modulated_conv2d,
     modulated_conv_transpose2d,
@@ -64,14 +69,6 @@ class StyleMapping(nn.Module):
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.layers(z)
-
-
-class Blur(nn.Module):
-    """Holds the FIR kernel as the reference's ``kernel`` buffer."""
-
-    def __init__(self, taps: Sequence[int], gain: float, device=None):
-        super().__init__()
-        self.register_buffer("kernel", make_blur_kernel(taps, gain, device=device))
 
 
 class ModulatedConv2d(nn.Module):
@@ -195,10 +192,7 @@ class ConstantInput(nn.Module):
 
 
 class Generator(nn.Module):
-    """Dual-tower synthesis network. Output: [B, num_domains, T, H, W] f32.
-
-    ``config.remat`` is a training option and means nothing here.
-    """
+    """Dual-tower synthesis network. Output: [B, num_domains, T, H, W] f32."""
 
     def __init__(self, config: GeneratorConfig = GeneratorConfig(), device=None):
         super().__init__()
@@ -283,6 +277,14 @@ class Generator(nn.Module):
 
     # ------------------------------------------------------------- synthesis
 
+    def _block(self, module: nn.Module, px: int, *args):
+        """Run a block, rematerialized in the backward pass where the config
+        asks for it (generator.py:184-195 of the JAX package)."""
+        cfg = self.config
+        if cfg.remat and px >= cfg.remat_min_px and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
     def synthesize(self, wplus: torch.Tensor, noise: Sequence[torch.Tensor],
                    return_latents: bool = False):
         """wplus [B, n_latents, D] + per-layer noise -> [B, domains, T, H, W]."""
@@ -299,18 +301,21 @@ class Generator(nn.Module):
         def const(ci):
             return ci.input.to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
 
-        out1, s = sc1(const(self.constant_input_1), wplus[:, 0], noise[0])
-        out2 = sc2(const(self.constant_input_2), s, noise[0])
+        run = self._block
+        px = cfg.starting_resolution[0]
+        out1, s = run(sc1, px, const(self.constant_input_1), wplus[:, 0], noise[0])
+        out2 = run(sc2, px, const(self.constant_input_2), s, noise[0])
         # The tower-2 quirk is only in the stage loop (reference line 189).
-        skip1, s = self.starting_output_block_1(out1, wplus[:, 1])
-        skip2 = self.starting_output_block_2(out2, s)
+        skip1, s = run(self.starting_output_block_1, px, out1, wplus[:, 1])
+        skip2 = run(self.starting_output_block_2, px, out2, s)
         for i in range(cfg.n_stages):
-            out1, s = mc1[2 * i](out1, wplus[:, 2 * i + 1], noise[2 * i + 1])
-            out2 = mc2[2 * i](out2, s, noise[2 * i + 1])
-            out1, s = mc1[2 * i + 1](out1, wplus[:, 2 * i + 2], noise[2 * i + 2])
-            out2 = mc2[2 * i + 1](out2, s, noise[2 * i + 2])
-            skip1, s = ob1[i](out1, wplus[:, 2 * i + 3], skip=skip1)
-            skip2 = ob2[i](out1 if compat else out2, s, skip=skip2)
+            px = cfg.starting_resolution[0] * 2 ** (i + 1)
+            out1, s = run(mc1[2 * i], px, out1, wplus[:, 2 * i + 1], noise[2 * i + 1])
+            out2 = run(mc2[2 * i], px, out2, s, noise[2 * i + 1])
+            out1, s = run(mc1[2 * i + 1], px, out1, wplus[:, 2 * i + 2], noise[2 * i + 2])
+            out2 = run(mc2[2 * i + 1], px, out2, s, noise[2 * i + 2])
+            skip1, s = run(ob1[i], px, out1, wplus[:, 2 * i + 3], skip1)
+            skip2 = run(ob2[i], px, out1 if compat else out2, s, skip2)
         image = torch.stack([skip1.float(), skip2.float()], dim=1).contiguous()
         if return_latents:
             return image, wplus

@@ -1,6 +1,7 @@
-"""Equalized-learning-rate linear layer and the bias-owning fused leaky-ReLU.
+"""Equalized-learning-rate linear and conv layers and the bias-owning fused
+leaky-ReLU.
 
-Reference: multi_stylegan/equalized_layer.py:210-254 and
+Reference: multi_stylegan/equalized_layer.py:9-74, 210-254 and
 op_static/fused_act.py:76-85.  Weights are drawn ~N(0, 1) and scaled at run
 time by sqrt(2)/sqrt(fan_in); the reference also scales the bias, by
 sqrt(2)/sqrt(out_features), which is kept (so a style affine's "bias init
@@ -47,11 +48,39 @@ class EqualizedLinear(nn.Module):
         return y
 
 
+class EqualizedConv2d(nn.Module):
+    """Equalized 2D conv on NCHW (channels_last) input, symmetric integer
+    padding (equalized_layer.py:9-74): y = conv(x, W * sqrt(2/(Cin*k*k)))
+    + b * sqrt(2/Cout), W stored [Cout, Cin, kh, kw], bias init 0."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, bias: bool = True, device=None):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k, device=device))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+        else:
+            self.register_parameter("bias", None)
+        self.stride = stride
+        self.padding = padding
+        self.scale = math.sqrt(2.0) / math.sqrt(in_channels * k * k)
+        self.scale_bias = math.sqrt(2.0) / math.sqrt(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x, (self.weight * self.scale).to(x.dtype),
+                     stride=self.stride, padding=self.padding)
+        if self.bias is not None:
+            y = y + (self.bias * self.scale_bias).to(x.dtype)[None, :, None, None]
+        return y
+
+
 class FusedLeakyReLU(nn.Module):
     """Bias-owning fused leaky-ReLU on [B, C] or NCHW (channels_last) input.
 
     Module default scale is 1.0, not sqrt(2): the reference module default
-    that every model use goes through (op_static/fused_act.py:77).
+    that every model use goes through (op_static/fused_act.py:77).  Runs on
+    ``fused_leaky_relu``'s autograd Function (K1 forward, K2 backward).
     """
 
     def __init__(self, channels: int, negative_slope: float = 0.2,

@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+from torch import nn
 
 from multi_stylegan_torch.ops.upfirdn2d import upfirdn2d
 
@@ -23,6 +24,15 @@ def make_blur_kernel(
     if k.dim() == 1:
         k = k[None, :] * k[:, None]
     return k / k.sum() * gain
+
+
+class Blur(nn.Module):
+    """Holds an FIR kernel as the reference's ``kernel`` buffer (the
+    ``Blur`` / ``Upsample`` modules' state)."""
+
+    def __init__(self, taps: Sequence[int] = (1, 3, 3, 1), gain: float = 1.0, device=None):
+        super().__init__()
+        self.register_buffer("kernel", make_blur_kernel(taps, gain, device=device))
 
 
 def blur_padding(

@@ -1,4 +1,5 @@
-"""upfirdn2d on NHWC tensors: upsample (zero-stuff), FIR filter, downsample.
+"""upfirdn2d on NHWC tensors: upsample (zero-stuff), FIR filter, downsample,
+with its gradient and double gradient.
 
 Reference semantics: multi_stylegan/op_static/upfirdn2d.py:148-191 and its
 CUDA kernel; the output extent per spatial dim is
@@ -6,18 +7,24 @@ CUDA kernel; the output extent per spatial dim is
 The taps are applied as a true convolution (flipped) and zero-stuffing
 appends trailing zeros (``n * up`` samples, not ``(n - 1) * up + 1``).
 
-Two versions of the same function live here:
+Two versions of the same op live here:
 
 * :func:`upfirdn2d_ref` - plain PyTorch (zero-stuff, pad or crop, depthwise
-  ``F.conv2d`` with the flipped taps, stride ``down``).  CPU tensors use it,
-  with autograd; it is the oracle the kernel is held against.
+  ``F.conv2d`` with the flipped taps, stride ``down``).  CPU tensors use it;
+  it is the oracle the kernel is held against.
 * the CUDA C++ kernel ``csrc/upfirdn2d.cu`` for CUDA tensors (its header
   says what it replaces, what bounds it and how), built at first use by
   ``ops/cuda_build.py`` and called through ``ctypes``.
 
-A CUDA tensor launches the kernel or raises; there is no fallback.  The
-kernel is forward only: a CUDA call that needs a gradient raises until the
-backward stencil is ported with the training path.
+Gradients mirror the reference's autograd pair ``UpFirDn2d`` /
+``UpFirDn2dBackward`` (op_static/upfirdn2d.py:22-145), as the JAX package's
+``_upfirdn_grad`` does (ops/pallas_kernels.py:328-379): the backward is the
+same op on the cotangent with the taps flipped, ``up`` and ``down`` swapped
+and the adjoint pads, and it is itself a Function whose backward is the
+forward op again.  Both directions launch the same kernel (K3 forward, K4
+backward, counted apart), so grad-of-grad for R1 and path length runs on
+the card to any order.  A CUDA tensor launches the kernel or raises; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -30,8 +37,11 @@ import torch.nn.functional as F
 
 from multi_stylegan_torch.ops import cuda_build
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernel since import (or since a caller reset them):
+# ``launches`` for forward calls (K3), ``grad_launches`` for the adjoint
+# launches of the backward (K4).
 launches = 0
+grad_launches = 0
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,6 +93,67 @@ def upfirdn2d_ref(
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def _upfirdn(x, kernel, up, down, pad, adjoint=False):
+    """One launch of the op on normalized pads: the kernel on a CUDA tensor,
+    the plain version on a CPU one."""
+    if x.device.type == "cpu":
+        return upfirdn2d_ref(x, kernel, up, down, (pad[2], pad[3], pad[0], pad[1]))
+    if x.device.type != "cuda":
+        raise ValueError(f"upfirdn2d: unsupported device {x.device}")
+    return _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint)
+
+
+def _adjoint_pads(kernel_hw, up, down, pad, in_hw, out_hw):
+    """Pads of the gradient pass (reference UpFirDn2dBackward.forward,
+    op_static/upfirdn2d.py:114-119), normalized (y0, y1, x0, x1)."""
+    (kh, kw), (py0, _, px0, _), (ih, iw), (oh, ow) = kernel_hw, pad, in_hw, out_hw
+    return (kh - py0 - 1, ih * up - oh * down + py0 - up + 1,
+            kw - px0 - 1, iw * up - ow * down + px0 - up + 1)
+
+
+class UpFirDn2d(torch.autograd.Function):
+    """y = upfirdn2d(x); backward is :class:`UpFirDn2dBackward` (no tap grad:
+    the taps are fixed buffers).  ``adjoint`` marks a launch made by a
+    backward pass (the double backward), counted as K4."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, up, down, pad, adjoint=False):
+        y = _upfirdn(x, kernel, up, down, pad, adjoint)
+        ctx.save_for_backward(kernel)
+        ctx.consts = (up, down, pad, tuple(x.shape[1:3]), tuple(y.shape[1:3]))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (kernel,) = ctx.saved_tensors
+        gx = UpFirDn2dBackward.apply(g, kernel, *ctx.consts)
+        return gx, None, None, None, None, None
+
+
+class UpFirDn2dBackward(torch.autograd.Function):
+    """The adjoint of upfirdn2d: flipped taps, up and down swapped, adjoint
+    pads; its own backward is the forward op on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, g, kernel, up, down, pad, in_hw, out_hw):
+        gpad = _adjoint_pads(tuple(kernel.shape), up, down, pad, in_hw, out_hw)
+        # a cotangent may arrive in any layout; the caller's forward input may not
+        gx = _upfirdn(g.contiguous(), kernel.flip(0, 1).contiguous(), down, up, gpad,
+                      adjoint=True)
+        if tuple(gx.shape[1:3]) != tuple(in_hw):
+            raise AssertionError(f"upfirdn2d adjoint gave {tuple(gx.shape)}, want {in_hw}")
+        ctx.save_for_backward(kernel)
+        ctx.consts = (up, down, pad)
+        return gx
+
+    @staticmethod
+    def backward(ctx, gg):
+        (kernel,) = ctx.saved_tensors
+        up, down, pad = ctx.consts
+        return (UpFirDn2d.apply(gg.contiguous(), kernel, up, down, pad, True),
+                None, None, None, None, None, None)
+
+
 def upfirdn2d(
     x: torch.Tensor,
     kernel: torch.Tensor,
@@ -90,22 +161,18 @@ def upfirdn2d(
     down: int = 1,
     pad: Union[int, Sequence[int]] = (0, 0),
 ) -> torch.Tensor:
-    """upfirdn2d on an NHWC tensor with [kh, kw] f32 taps.
+    """upfirdn2d on an NHWC tensor with [kh, kw] f32 taps, with autograd to
+    any order in ``x``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (contiguous NHWC input - the ``permute(0, 2, 3, 1)`` view of a
-    channels_last tensor - in f32 or bf16; contiguous f32 taps).
+    (NHWC input - the ``permute(0, 2, 3, 1)`` view of a channels_last
+    tensor - in f32 or bf16; contiguous f32 taps) forward and backward.
     """
-    if x.device.type == "cpu":
-        return upfirdn2d_ref(x, kernel, up, down, pad)
-    if x.device.type != "cuda":
-        raise ValueError(f"upfirdn2d: unsupported device {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or kernel.requires_grad):
-        raise NotImplementedError(
-            "upfirdn2d on CUDA is forward-only: its backward stencil is "
-            "ported with the training slice"
-        )
-    return _upfirdn2d_cuda(x, kernel, int(up), int(down), _normalize_pad(pad))
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+    if int(up) < 1 or int(down) < 1:
+        raise ValueError(f"upfirdn2d: up and down must be >= 1, got {up}, {down}")
+    return UpFirDn2d.apply(x, kernel.detach(), int(up), int(down), _normalize_pad(pad))
 
 
 def _library():
@@ -119,8 +186,8 @@ def _library():
     return _LIB
 
 
-def _upfirdn2d_cuda(x, kernel, up, down, pad):
-    global launches
+def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
+    global launches, grad_launches
     py0, py1, px0, px1 = pad
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"upfirdn2d: unsupported dtype {x.dtype}")
@@ -157,5 +224,8 @@ def _upfirdn2d_cuda(x, kernel, up, down, pad):
         )
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
-    launches += 1
+    if adjoint:
+        grad_launches += 1
+    else:
+        launches += 1
     return y

@@ -211,3 +211,112 @@ def test_equalized_linear_matches_jax(rng, use_bias, bias_init):
         got = port(_t(x))
     assert (port.bias is None) == (not use_bias)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------------ gradients (K2, K4 wiring)
+#
+# The Functions' inner ops run their plain versions on the CPU, so these
+# tests hold the autograd wiring itself (adjoint pads, tap flips, swapped
+# up/down, the bias-sum transpose) against JAX's autodiff of the XLA ops:
+# value, first gradient and grad-of-grad.  Tolerances: forward 1e-4 abs,
+# gradients 1e-4 and grad-of-grad 1e-3 of the gradient's max abs (f32 on
+# both sides, sums in other orders).
+
+
+def _close(got, ref, tol):
+    ref = np.asarray(ref, np.float32)
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol * max(1.0, np.abs(ref).max()))
+
+
+def _second_order(jax_fn, torch_fn, x, c, d):
+    """L = sum(f(x)^2 * c); returns (f, dL/dx, d/dx sum(dL/dx * d)) from both."""
+    def loss_j(xx):
+        return jnp.sum(jnp.square(jax_fn(xx)) * c)
+
+    ref_y = jax_fn(jnp.asarray(x))
+    ref_g = jax.grad(loss_j)(jnp.asarray(x))
+    ref_gg = jax.grad(lambda xx: jnp.sum(jax.grad(loss_j)(xx) * d))(jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    y = torch_fn(xt)
+    (g,) = torch.autograd.grad((y.square() * _t(c)).sum(), xt, create_graph=True)
+    (gg,) = torch.autograd.grad((g * _t(d)).sum(), xt)
+    return (ref_y, ref_g, ref_gg), (y, g, gg)
+
+
+UPFIRDN_GRAD_CASES = [
+    (up, down, pad, k, h, w) for pad, k, h, w in PALLAS_CASES for up, down in [(1, 1)]
+] + [
+    (1, 1, (2, 2), 4, 15, 15),       # D downscale blur on an odd map
+    (1, 1, (2, 2), 4, 15, 13),       # ... non-square
+    (2, 1, (2, 1), 4, 5, 7),         # skip / decoder upsample (adjoint is down=2)
+    (1, 2, (1, 1), 4, 9, 11),        # downsample (adjoint is up=2)
+    (2, 2, (1, 2, 0, 3), 3, 9, 11),  # 4-tuple pad (x0, x1, y0, y1), non-square
+    (1, 1, (-1, 2), 4, 9, 6),        # crop
+]
+
+
+@pytest.mark.parametrize("up,down,pad,k,h,w", UPFIRDN_GRAD_CASES)
+def test_upfirdn2d_function_grad_and_grad_of_grad_match_jax(rng, up, down, pad, k, h, w):
+    c_in = 3
+    x = rng.normal(size=(2, h, w, c_in)).astype(np.float32)
+    taps = rng.normal(size=(k, k)).astype(np.float32)
+    y_shape = upfirdn2d(_t(x), _t(taps), up=up, down=down, pad=pad).shape
+    cot = rng.normal(size=tuple(y_shape)).astype(np.float32)
+    d = rng.normal(size=x.shape).astype(np.float32)
+    (ry, rg, rgg), (y, g, gg) = _second_order(
+        lambda xx: upfirdn2d_xla(xx, jnp.asarray(taps), up=up, down=down, pad=pad),
+        lambda xx: upfirdn2d(xx, _t(taps), up=up, down=down, pad=pad), x, cot, d)
+    _close(y, ry, 1e-4)
+    _close(g, rg, 1e-4)
+    _close(gg, rgg, 1e-3)
+
+
+@pytest.mark.parametrize("scale", [1.0, math.sqrt(2.0)])
+@pytest.mark.parametrize("shape", [(6, 5), (2, 5, 3, 4)])
+def test_fused_leaky_relu_function_grad_and_grad_of_grad_match_jax(rng, shape, scale):
+    """Includes the bias: its grad and the gg_db term of the double backward."""
+    from multi_stylegan_tpu.ops.fused_act import fused_leaky_relu_xla
+
+    x = rng.normal(size=shape).astype(np.float32)
+    b = rng.normal(size=(shape[-1],)).astype(np.float32)
+    c = rng.normal(size=shape).astype(np.float32)
+    dx_dir = rng.normal(size=shape).astype(np.float32)
+    db_dir = rng.normal(size=(shape[-1],)).astype(np.float32)
+
+    def loss_j(xx, bb):
+        return jnp.sum(jnp.square(fused_leaky_relu_xla(xx, bb, 0.2, scale)) * c)
+
+    def h_j(xx, bb):
+        gx, gb = jax.grad(loss_j, argnums=(0, 1))(xx, bb)
+        return jnp.sum(gx * dx_dir) + jnp.sum(gb * db_dir)
+
+    xj, bj = jnp.asarray(x), jnp.asarray(b)
+    ref_g = jax.grad(loss_j, argnums=(0, 1))(xj, bj)
+    ref_gg = jax.grad(h_j, argnums=(0, 1))(xj, bj)
+    xt, bt = _t(x).requires_grad_(True), _t(b).requires_grad_(True)
+    y = fused_act.fused_leaky_relu(xt, bt, 0.2, scale)
+    _close(y, fused_leaky_relu_xla(xj, bj, 0.2, scale), 1e-4)
+    gx, gb = torch.autograd.grad((y.square() * _t(c)).sum(), (xt, bt), create_graph=True)
+    _close(gx, ref_g[0], 1e-4)
+    _close(gb, ref_g[1], 1e-4)
+    ggx, ggb = torch.autograd.grad((gx * _t(dx_dir)).sum() + (gb * _t(db_dir)).sum(), (xt, bt))
+    _close(ggx, ref_gg[0], 1e-3)
+    _close(ggb, ref_gg[1], 1e-3)
+
+
+def test_fused_leaky_relu_grad_matches_pallas_grad_kernel(rng):
+    """The plain gradient (dx from the output's sign, f32 bias sum of the
+    stored dx) is the Pallas grad kernel's, in f32 and bf16."""
+    for dtype in ("float32", "bfloat16"):
+        g = rng.normal(size=(40, 24)).astype(np.float32)
+        out = rng.normal(size=(40, 24)).astype(np.float32)
+        gj, oj = jnp.asarray(g).astype(dtype), jnp.asarray(out).astype(dtype)
+        with pltpu.force_tpu_interpret_mode():
+            ref_dx = pallas_kernels._flr_grad_from_out(gj, oj, 0.2, 1.0)
+        ref_db = np.asarray(ref_dx, np.float32).sum(0)
+        dx, db = fused_act.fused_leaky_relu_grad_ref(
+            _t(g).to(getattr(torch, dtype)), _t(out).to(getattr(torch, dtype)), 0.2, 1.0)
+        np.testing.assert_array_equal(dx.float().numpy(), np.asarray(ref_dx, np.float32))
+        np.testing.assert_allclose(db.numpy(), ref_db, rtol=1e-6, atol=1e-5)
