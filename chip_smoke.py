@@ -12,7 +12,8 @@ beside it.  Phases, each raising on failure:
               started together) and print ptxas' register lines.
 2. kernels  - hold K1 and K3 against their plain PyTorch versions on the
               card, in f32 and bf16, at every call-site shape of the
-              sampling path at batch 16 plus edge cases, with times.
+              sampling path at batch 16, with times; K3 and its adjoint
+              (K4) at edge cases aimed at each of upfirdn2d's variants.
 3. sample   - the sampling CLI (``multi_stylegan_torch.cli.sample``, full
               256x256 generator, 32 samples at batch 16, random weights)
               with the launch counts zeroed just before: PNGs, finiteness,
@@ -33,12 +34,15 @@ beside it.  Phases, each raising on failure:
               12 and 6): K1 and K3 forward, K2 (dx and db) and K4 (backward
               and double backward) against the plain versions' autograd on
               the card, in f32 and bf16; kernel, plain and library times and
-              the bound, in f32.
+              the bound, in f32.  Every K3/K4 site but the C = 3 skip
+              upsamples must take a tiled upfirdn2d variant.
 6. parity   - GPU vs CPU (plain versions, TF32 off): a D-step gradient, the
               R1 penalty's parameter gradient and the path-length gradient
               at full width, batch 2, same weights and draws.
 
-Prints one ``site`` line per call site, the card's name and power limit,
+Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
+of upfirdn2d the launch took), one ``edge`` line per upfirdn2d edge case,
+the card's name and power limit,
 one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 In the kernels line ``launches`` sums the three main-path runs (sampling
 CLI, training CLI, regularised iteration), each counted from zero, and
@@ -167,17 +171,49 @@ def upfirdn_sites():
 
 
 def upfirdn_edge_cases():
-    """Edge cases (B=2): the Pallas kernel's test shapes at C=128 and 256,
-    then general up/down/pads the generator does not use."""
-    cases = [((2, h, w, 128), 1, 1, pad, k) for pad, k, h, w in [
+    """Edge cases as (shape, up, down, pad as upfirdn2d takes it, k,
+    misaligned): the Pallas kernel's test shapes at C=128 and 256; general
+    up/down/pads the models do not use; then cases aimed at each tiled
+    variant's edges: odd maps with pad (2, 2), H != W, asymmetric adjoint
+    pads (4-tuples are (x0, x1, y0, y1)), widths ragged against the 16-wide
+    tiles, crops, C = 8, 24 and 130 (not a multiple of the vector: general),
+    a storage offset that misaligns the tensors (general), and up 2 and
+    down 2 at C = 256 with B > 1."""
+    cases = [((2, h, w, 128), 1, 1, pad, k, False) for pad, k, h, w in [
         ((2, 2), 4, 16, 16), ((2, 1), 4, 17, 16), ((1, 1), 3, 32, 16),
         ((2, 1), 4, 8, 8), ((3, 3), 4, 16, 8), ((3, 3), 4, 31, 16),
         ((3, 3), 4, 33, 16), ((0, 0), 4, 16, 16)]]
-    cases += [((1, 16, 16, 256), 1, 1, (2, 1), 4),
-              ((2, 9, 11, 3), 2, 1, (3, 1), 4), ((2, 9, 11, 3), 1, 2, (1, 1), 4),
-              ((2, 9, 11, 5), 1, 1, (-1, 2), 4), ((2, 9, 11, 7), 2, 2, (1, 2, 0, 3), 3),
-              ((2, 8, 8, 130), 2, 1, (2, 1), 4)]
+    cases += [((1, 16, 16, 256), 1, 1, (2, 1), 4, False),
+              ((2, 9, 11, 3), 2, 1, (3, 1), 4, False), ((2, 9, 11, 3), 1, 2, (1, 1), 4, False),
+              ((2, 9, 11, 5), 1, 1, (-1, 2), 4, False),
+              ((2, 9, 11, 7), 2, 2, (1, 2, 0, 3), 3, False),
+              ((2, 8, 8, 130), 2, 1, (2, 1), 4, False)]
+    cases += [((2, n, n, c), 1, 1, (2, 2), 4, False)
+              for n, c in ((127, 128), (63, 256), (31, 384), (15, 768))]
+    cases += [((2, 20, 37, 64), 1, 1, (2, 1), 4, False),
+              ((2, 33, 17, 512), 1, 1, (1, 2), 4, False),
+              ((2, 17, 33, 8), 1, 1, (0, 3, 1, 2), 4, False),
+              ((2, 9, 23, 24), 1, 1, (3, 0, -1, 2), 4, False),
+              ((3, 21, 45, 24), 2, 1, (2, 1), 4, False),
+              ((2, 9, 13, 24), 2, 1, (2, 1, 1, 2), 4, False),
+              ((2, 33, 19, 8), 1, 2, (2, 1, 0, 2), 4, False),
+              ((2, 16, 16, 130), 1, 1, (2, 1), 4, False),
+              ((2, 16, 16, 64), 1, 1, (2, 1), 4, True),
+              ((2, 16, 16, 256), 2, 1, (2, 1), 4, True),
+              ((4, 32, 32, 256), 2, 1, (2, 1), 4, False),
+              ((4, 64, 64, 256), 1, 2, (1, 1), 4, False)]
     return cases
+
+
+def misaligned_copy(t):
+    """A contiguous copy of ``t`` one element into its storage, so that its
+    data pointer is not 16-byte aligned."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def library_upfirdn(x_nhwc, taps, up, pad):
@@ -210,7 +246,7 @@ def phase_kernels(seed: int):
     from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
     from multi_stylegan_torch.ops.blur import make_blur_kernel
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     report = {"fused_leaky_relu": [], "upfirdn2d": []}
@@ -247,6 +283,7 @@ def phase_kernels(seed: int):
             row[f"max_abs_err_{name}"] = check(
                 f"upfirdn2d {label}", got, up_mod.upfirdn2d_ref(x, taps, up, down, pad), name)
             if name == "float32":
+                row["variant"] = up_mod.last_variant
                 b, h, w, c = shape
                 ho, wo = got.shape[1], got.shape[2]
                 used = (upfirdn_taps_used(h, ho, up, down, pad[0], 4)
@@ -263,16 +300,35 @@ def phase_kernels(seed: int):
         report["upfirdn2d"].append(row)
         print("site", json.dumps({"kernel": "upfirdn2d", **row}), flush=True)
 
-    # K3 edge cases: correctness only
+    # K3 and K4 edge cases: correctness only, forward and the adjoint
     edge_err = {"float32": 0.0, "bfloat16": 0.0}
-    for shape, up, down, pad, k in upfirdn_edge_cases():
+    for shape, up, down, pad, k, misaligned in upfirdn_edge_cases():
         taps = torch.randn((k, k), generator=g, device=dev)
+        npad = up_mod._normalize_pad(pad)
+        label = f"upfirdn2d edge {shape} up={up} down={down} pad={pad}"
+        row = {"shape": list(shape), "up": up, "down": down, "pad": list(pad), "k": k,
+               "misaligned": misaligned}
         for name, dt in dtypes.items():
             x = torch.randn(shape, generator=g, device=dev).to(dt)
+            x = misaligned_copy(x) if misaligned else x
             got = up_mod.upfirdn2d(x, taps, up, down, pad)
-            edge_err[name] = max(edge_err[name], check(
-                f"upfirdn2d edge {shape} up={up} down={down} pad={pad}",
-                got, up_mod.upfirdn2d_ref(x, taps, up, down, pad), name))
+            variants = [up_mod.last_variant]
+            err = check(label, got, up_mod.upfirdn2d_ref(x, taps, up, down, pad), name)
+            gy = torch.randn(got.shape, generator=g, device=dev).to(dt)
+            gy = misaligned_copy(gy) if misaligned else gy
+            gx = up_mod.UpFirDn2dBackward.apply(gy, taps, up, down, npad, shape[1:3],
+                                                tuple(got.shape[1:3]))
+            variants.append(up_mod.last_variant)
+            xr = x.detach().clone().requires_grad_(True)
+            (rgx,) = torch.autograd.grad(up_mod.upfirdn2d_ref(xr, taps, up, down, pad), xr, gy)
+            err = max(err, check(label + " adjoint", gx, rgx, name))
+            if misaligned and set(variants) != {"general"}:
+                raise AssertionError(f"{label}: a misaligned tensor took a tiled variant")
+            if name == "float32":
+                row["variant"], row["variant_adjoint"] = variants
+            row[f"max_abs_err_{name}"] = err
+            edge_err[name] = max(edge_err[name], err)
+        print("edge", json.dumps(row), flush=True)
     print("upfirdn2d edge cases ok", json.dumps(edge_err), flush=True)
     # K1 on a ragged [M, C] (C not a power of two, M not a block multiple)
     x = torch.randn((1000, 130), generator=g, device=dev)
@@ -827,11 +883,15 @@ def phase_grad_sites(seed: int, census) -> dict:
                          library_upfirdn(gg, taps, up, (pad[0], pad[1])) if sym else None,
                          used_f, x.numel(), y.numel())):
                     row["ms"] = cuda_ms(fn)
+                    row["variant"] = up_mod.last_variant
                     row["plain_ms"] = cuda_ms(plain)
                     row["library_ms"] = cuda_ms(lib) if lib is not None else None
                     row["bound_ms"], row["bound_by"] = bound_ms(
                         (n_in + n_out) * 4 + taps.numel() * 4, 2 * used * b * c)
             del x, gy, gg, y, gx, rgx, ggy, rggy, xr, gr
+        # every model site but the C = 3 skip upsamples has a tiled form
+        if c != 3 and "general" in (fwd["variant"], bwd["variant"], dbl["variant"]):
+            raise AssertionError(f"K3/K4 site {key} took the general variant")
         emit("K3", fwd)
         emit("K4", bwd)
         emit("K4", dbl)

@@ -5,28 +5,73 @@
 //
 // Replaces the TPU kernel multi_stylegan_tpu/ops/pallas_kernels.py::
 // _make_upfirdn_kernel (launched by _upfirdn2d_pallas_fwd_impl), which only
-// took up = down = 1 and non-negative pads below k.  This kernel takes any
-// up, down >= 1 and any pads, as the reference's own CUDA op does, so it
-// also serves the generator's up=2 skip upsample (C = 3) and, later, the
-// discriminator's resampling and the down=2 backward.
+// took up = down = 1 and non-negative pads below k.  The same source serves
+// the forward op (K3) and its adjoint (K4: flipped taps, up and down swapped,
+// adjoint pads) at every call site of the models: the generator's blurs and
+// C = 3 skip upsamples, the discriminator's downscale blurs on odd maps and
+// its decoder upsamples, and the down=2 adjoints of every up=2 site.
 //
 // Bound on an H100: bytes.  At the generator's top blur site in f32,
-// [16,256,256,512] in and out is 4.3 GB, about 1.3 ms at 3.35 TB/s, against
-// 16 taps x 2 flops x 537M outputs = 17 GFLOP, 0.26 ms at 67 TFLOP/s.
-// Design: the direct form.  One thread per output element with channels
-// fastest, so a warp's loads and stores cover 32 neighbouring channels of
-// one pixel and coalesce; the kh x kw window re-reads neighbouring pixels,
-// which L1/L2 serve.  Each thread visits only the taps that land on a real
-// input sample (the zero-stuffed ones are skipped by stepping `up`), with
-// the taps in shared memory.  Blocks walk output rows (b, oy) in y and a
-// row's (ox, c) elements in x; offsets into x and y are 64-bit, since at
-// batch 64 the top site holds more than 2^31 elements.
+// [24,256,256,512] in and out is 6.4 GB, 1.92 ms at 3.35 TB/s, against
+// 16 taps x 2 flops x 805M outputs = 26 GFLOP, 0.38 ms at 67 TFLOP/s.
+// The first version, the direct form kept below as the general kernel (one
+// thread per output element, each of the 16 taps an integer division and a
+// 4-byte load), ran that site at 32.4 ms, 6% of the bound, where its note
+// had predicted 1.3 ms at batch 16 (17x off): it was bound by instruction
+// issue, and the window's 16-fold reuse went to L2.
+//
+// Design: specialised tiled kernels for the three forms the models run,
+// chosen by the Python wrapper (ops/upfirdn2d.py::_plan) and checked here:
+//   up 1 down 1 (blurs, up=1 adjoints, their double backward),
+//   up 2 down 1 (upsamples and the double backward of their adjoints),
+//   up 1 down 2 (the adjoints of the up=2 sites),
+// for 4x4 taps, C a multiple of the 16-byte vector (4 f32 / 8 bf16) and
+// 16-byte aligned input and output.  One block computes one batch element's
+// TH x TW outputs for one chunk of 8 channel vectors (128 bytes a pixel):
+// it stages the input tile with its halo in shared memory by 16-byte
+// cp.async copies that zero-fill outside [0, H) x [0, W) (which gives pads,
+// crops and ragged tile edges in one mechanism), then each thread computes
+// one channel vector for MY rows x S consecutive columns, loading each staged
+// pixel of its window once and keeping the 16 taps and the sums in
+// registers.  up 2 is polyphase: the phase of every (output, tap) pair is
+// fixed at compile time from the pads' parities (RY, RX), so no zero-stuffed
+// sample is read and nothing is divided.  Blocks are not double-buffered:
+// two to four resident blocks a SM overlap one block's copies with
+// another's arithmetic.  Tiles (TH x TW, MY x S per thread, threads, shared
+// memory):
+//   up1 down1: 16 x 16, f32 1 x 8 (256 threads), bf16 1 x 4 (512), 45 KB
+//   up2 down1: 16 x 16, f32 2 x 4 (256),         bf16 2 x 2 (512), 12.5 KB
+//   up1 down2:  8 x 16, f32 1 x 4 (256),         bf16 1 x 2 (512), 76.5 KB
+// Everything else (C = 3, other taps, misaligned views) takes the general
+// kernel, the direct form.  Each output is written once, without atomics.
+// Offsets are 64-bit from the batch base: at batch 64 the top site holds
+// more than 2^31 elements.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, f32, in two runs: the top blur site and its adjoint 2.20-2.22 ms,
+// 0.87 of the bound; the D decoder's 24x128x128x256 up 2 at 0.71 ms (0.85)
+// and its down 2 adjoint at 0.66 ms (0.92); D's 127x127 blur at 0.14 ms
+// (0.85).  Every batch-12 and batch-24 site from 64x64 up reaches 0.77-0.92
+// of the bound.  Below that, a launch costs 0.03-0.07 ms of host dispatch,
+// whatever the kernel does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
+
+// Variant codes, the ones ops/upfirdn2d.py::_plan emits.
+enum Variant { kGeneral = 0, kUp1Down1 = 1, kUp2Down1 = 2, kUp1Down2 = 3 };
+
+struct Shape {
+  int B, H, W, C;   // input
+  int Ho, Wo;       // output
+  int kh, kw, up, down, py0, px0;
+};
+
+// ------------------------------------------------------------ general form
 
 template <typename T> __device__ __forceinline__ float load_f32(const T* p);
 template <> __device__ __forceinline__ float load_f32<float>(const float* p) { return __ldg(p); }
@@ -40,18 +85,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-struct Shape {
-  int B, H, W, C;   // input
-  int Ho, Wo;       // output
-  int kh, kw, up, down, py0, px0;
-};
-
 // First tap t >= 0 whose zero-stuffed coordinate u0 + t is a real sample:
 // u0 + t >= 0 and (u0 + t) % up == 0.
 __device__ __forceinline__ int first_tap(int u0, int up) {
   return u0 < 0 ? -u0 : (up - u0 % up) % up;
 }
 
+// One thread per output element, channels fastest; any up, down, taps, pads.
 template <typename T>
 __global__ void upfirdn2d_nhwc_kernel(const T* __restrict__ x, const float* __restrict__ taps,
                                       T* __restrict__ y, Shape s) {
@@ -91,7 +131,8 @@ __global__ void upfirdn2d_nhwc_kernel(const T* __restrict__ x, const float* __re
 }
 
 template <typename T>
-void launch(const void* x, const void* taps, void* y, const Shape& s, cudaStream_t stream) {
+int launch_general(const void* x, const void* taps, void* y, const Shape& s,
+                   cudaStream_t stream) {
   const int threads = 256;
   const long long row_elems = static_cast<long long>(s.Wo) * s.C;
   const long long rows = static_cast<long long>(s.B) * s.Ho;
@@ -100,21 +141,225 @@ void launch(const void* x, const void* taps, void* y, const Shape& s, cudaStream
   const size_t smem = static_cast<size_t>(s.kh) * s.kw * sizeof(float);
   upfirdn2d_nhwc_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(taps), static_cast<T*>(y), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ----------------------------------------------------------- tiled forms
+
+constexpr int kLanes = 8;  // 16-byte channel vectors per staged pixel (128 bytes)
+constexpr int kTaps = 4;   // the tiled forms take 4 x 4 taps
+
+template <typename T> struct Vec;  // channels per 16-byte vector
+template <> struct Vec<float> { static constexpr int N = 4; };
+template <> struct Vec<__nv_bfloat16> { static constexpr int N = 8; };
+
+template <typename T> __device__ __forceinline__ void unpack(const uint4& r, float* v);
+template <> __device__ __forceinline__ void unpack<float>(const uint4& r, float* v) {
+  v[0] = __uint_as_float(r.x); v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z); v[3] = __uint_as_float(r.w);
+}
+template <> __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r, float* v) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // the lower address holds the lower half
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+template <typename T> __device__ __forceinline__ uint4 pack(const float* v);
+template <> __device__ __forceinline__ uint4 pack<float>(const float* v) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+template <> __device__ __forceinline__ uint4 pack<__nv_bfloat16>(const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// 16-byte global -> shared copy; src-size 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(fill ? 16 : 0));
+}
+
+// Tile geometry of one form.  Output row m of a tile whose first output row
+// is O reads zero-stuffed rows DOWN*(O+m) - py0 + t; with the staged tile's
+// first input row I0 = floor((DOWN*O - py0) / UP) and RY = DOWN*O - py0 -
+// UP*I0 (0 for up 1, the parity of py0 for up 2, since O is even), tap t of
+// output row m lands on staged row (DOWN*m + t + RY) / UP when that divides,
+// and on a zero-stuffed sample otherwise.  Likewise along W with RX.
+template <typename T, int UP, int DOWN, int TH, int TW, int MY, int S, int RY, int RX>
+struct Tile {
+  static constexpr int N = Vec<T>::N;
+  static constexpr int THREADS = kLanes * (TH / MY) * (TW / S);
+  static constexpr int IH = (DOWN * (TH - 1) + kTaps - 1 + RY) / UP + 1;  // staged rows
+  static constexpr int IW = (DOWN * (TW - 1) + kTaps - 1 + RX) / UP + 1;  // staged columns
+  static constexpr int JY = (DOWN * (MY - 1) + kTaps - 1 + RY) / UP + 1;  // rows a thread reads
+  static constexpr int JX = (DOWN * (S - 1) + kTaps - 1 + RX) / UP + 1;   // columns it reads
+  static constexpr size_t SMEM = static_cast<size_t>(IH) * IW * kLanes * sizeof(uint4);
+  static_assert(MY % UP == 0 && S % UP == 0 && TH % MY == 0 && TW % S == 0,
+                "a thread's first output must sit on phase 0");
+};
+
+template <typename T, int UP, int DOWN, int TH, int TW, int MY, int S, int RY, int RX>
+__global__ void __launch_bounds__((Tile<T, UP, DOWN, TH, TW, MY, S, RY, RX>::THREADS))
+upfirdn2d_tiled_kernel(const T* __restrict__ x, const float* __restrict__ taps,
+                       T* __restrict__ y, Shape s) {
+  using G = Tile<T, UP, DOWN, TH, TW, MY, S, RY, RX>;
+  constexpr int N = G::N, IH = G::IH, IW = G::IW;
+  extern __shared__ uint4 tile[];  // [IH][IW][kLanes]
+
+  const int chunks = (s.C + kLanes * N - 1) / (kLanes * N);
+  const int tiles_x = (s.Wo + TW - 1) / TW;
+  const int chunk = blockIdx.x % chunks;
+  const int t = blockIdx.x / chunks;
+  const int oy0 = (t / tiles_x) * TH, ox0 = (t % tiles_x) * TW;
+  const int b = blockIdx.y;
+  const int iy0 = (DOWN * oy0 - s.py0 - RY) / UP;  // exact: the numerator divides
+  const int ix0 = (DOWN * ox0 - s.px0 - RX) / UP;
+  const int c0 = chunk * kLanes * N;
+  const T* xb = x + static_cast<int64_t>(b) * s.H * s.W * s.C;
+
+  for (int i = threadIdx.x; i < IH * IW * kLanes; i += G::THREADS) {
+    const int lane = i % kLanes, p = i / kLanes;
+    const int iy = iy0 + p / IW, ix = ix0 + p % IW, c = c0 + lane * N;
+    const bool in = iy >= 0 && iy < s.H && ix >= 0 && ix < s.W && c < s.C;
+    cp_async16(&tile[i], in ? xb + (static_cast<int64_t>(iy) * s.W + ix) * s.C + c : x, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  float k[kTaps * kTaps];  // flipped on use: tap (ty, tx) takes k[3-ty][3-tx]
+#pragma unroll
+  for (int i = 0; i < kTaps * kTaps; ++i) k[i] = __ldg(taps + i);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  const int lane = threadIdx.x % kLanes, rest = threadIdx.x / kLanes;
+  const int my0 = (rest / (TW / S)) * MY, mx0 = (rest % (TW / S)) * S;
+  float acc[MY][S][N];
+#pragma unroll
+  for (int a = 0; a < MY; ++a)
+#pragma unroll
+    for (int m = 0; m < S; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n) acc[a][m][n] = 0.f;
+
+  const uint4* win = tile + ((DOWN * my0 / UP) * IW + DOWN * mx0 / UP) * kLanes + lane;
+#pragma unroll
+  for (int jy = 0; jy < G::JY; ++jy) {
+#pragma unroll
+    for (int jx = 0; jx < G::JX; ++jx) {
+      float v[N];
+      unpack<T>(win[(jy * IW + jx) * kLanes], v);
+#pragma unroll
+      for (int a = 0; a < MY; ++a) {
+        const int ty = UP * jy - DOWN * a - RY;  // the tap row that lands here
+        if (ty < 0 || ty >= kTaps) continue;
+#pragma unroll
+        for (int m = 0; m < S; ++m) {
+          const int tx = UP * jx - DOWN * m - RX;
+          if (tx < 0 || tx >= kTaps) continue;
+          const float w = k[(kTaps - 1 - ty) * kTaps + (kTaps - 1 - tx)];
+#pragma unroll
+          for (int n = 0; n < N; ++n) acc[a][m][n] = fmaf(v[n], w, acc[a][m][n]);
+        }
+      }
+    }
+  }
+
+  const int c = c0 + lane * N;
+  if (c >= s.C) return;
+#pragma unroll
+  for (int a = 0; a < MY; ++a) {
+    const int oy = oy0 + my0 + a;
+    if (oy >= s.Ho) continue;
+    T* yrow = y + (static_cast<int64_t>(b) * s.Ho + oy) * s.Wo * s.C + c;
+#pragma unroll
+    for (int m = 0; m < S; ++m) {
+      const int ox = ox0 + mx0 + m;
+      if (ox < s.Wo) *reinterpret_cast<uint4*>(yrow + static_cast<int64_t>(ox) * s.C) = pack<T>(acc[a][m]);
+    }
+  }
+}
+
+template <typename T, int UP, int DOWN, int TH, int TW, int MY, int S, int RY, int RX>
+int launch_tiled_phase(const void* x, const void* taps, void* y, const Shape& s,
+                       cudaStream_t stream) {
+  using G = Tile<T, UP, DOWN, TH, TW, MY, S, RY, RX>;
+  auto kernel = upfirdn2d_tiled_kernel<T, UP, DOWN, TH, TW, MY, S, RY, RX>;
+  if (G::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(G::SMEM));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long chunks = (s.C + kLanes * G::N - 1) / (kLanes * G::N);
+  const long long tiles = static_cast<long long>((s.Ho + TH - 1) / TH) * ((s.Wo + TW - 1) / TW);
+  dim3 grid(static_cast<unsigned>(chunks * tiles), static_cast<unsigned>(s.B));
+  kernel<<<grid, G::THREADS, G::SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(taps), static_cast<T*>(y), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int UP, int DOWN, int TH, int TW, int MY, int S>
+int launch_tiled(const void* x, const void* taps, void* y, const Shape& s, cudaStream_t st) {
+  if constexpr (UP == 1) {
+    return launch_tiled_phase<T, UP, DOWN, TH, TW, MY, S, 0, 0>(x, taps, y, s, st);
+  } else {
+    switch ((s.py0 & 1) * 2 + (s.px0 & 1)) {  // up 2: the pads' parities fix the phases
+      case 0: return launch_tiled_phase<T, UP, DOWN, TH, TW, MY, S, 0, 0>(x, taps, y, s, st);
+      case 1: return launch_tiled_phase<T, UP, DOWN, TH, TW, MY, S, 0, 1>(x, taps, y, s, st);
+      case 2: return launch_tiled_phase<T, UP, DOWN, TH, TW, MY, S, 1, 0>(x, taps, y, s, st);
+      default: return launch_tiled_phase<T, UP, DOWN, TH, TW, MY, S, 1, 1>(x, taps, y, s, st);
+    }
+  }
+}
+
+// The tiled forms' conditions, as _plan checks them (the grid count is taken
+// at the smallest tile, 8 x 16, for every form).
+bool tiled_ok(int variant, int vec, const void* x, const void* y, const Shape& s) {
+  const int up = variant == kUp2Down1 ? 2 : 1, down = variant == kUp1Down2 ? 2 : 1;
+  const long long chunks = (s.C + kLanes * vec - 1) / (kLanes * vec);
+  const long long tiles = static_cast<long long>((s.Ho + 7) / 8) * ((s.Wo + 15) / 16);
+  return s.kh == kTaps && s.kw == kTaps && s.up == up && s.down == down && s.C % vec == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+         s.B <= 65535 && chunks * tiles <= INT_MAX;
+}
+
+template <typename T>
+int launch(int variant, const void* x, const void* taps, void* y, const Shape& s,
+           cudaStream_t st) {
+  if (variant != kGeneral && !tiled_ok(variant, Vec<T>::N, x, y, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool f32 = sizeof(T) == 4;
+  switch (variant) {
+    case kGeneral: return launch_general<T>(x, taps, y, s, st);
+    case kUp1Down1: return launch_tiled<T, 1, 1, 16, 16, 1, f32 ? 8 : 4>(x, taps, y, s, st);
+    case kUp2Down1: return launch_tiled<T, 2, 1, 16, 16, 2, f32 ? 4 : 2>(x, taps, y, s, st);
+    case kUp1Down2: return launch_tiled<T, 1, 2, 8, 16, 1, f32 ? 4 : 2>(x, taps, y, s, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  Returns cudaGetLastError() after the
-// launch (0 on success); the Python wrapper raises on anything else.
-extern "C" int upfirdn2d_nhwc(const void* x, const void* taps, void* y, int dtype,
+// dtype: 0 = f32, 1 = bf16; variant: a Variant code from _plan.  Returns
+// cudaErrorInvalidValue for a variant the shape, dtype or alignment does not
+// allow, else cudaGetLastError() after the launch (0 on success); the Python
+// wrapper raises on anything but 0.
+extern "C" int upfirdn2d_nhwc(const void* x, const void* taps, void* y, int dtype, int variant,
                               int B, int H, int W, int C, int Ho, int Wo, int kh, int kw,
                               int up, int down, int py0, int px0, void* stream) {
   const Shape s{B, H, W, C, Ho, Wo, kh, kw, up, down, py0, px0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: launch<float>(x, taps, y, s, st); break;
-    case 1: launch<__nv_bfloat16>(x, taps, y, s, st); break;
+    case 0: return launch<float>(variant, x, taps, y, s, st);
+    case 1: return launch<__nv_bfloat16>(variant, x, taps, y, s, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,13 @@ Two versions of the same op live here:
 * :func:`upfirdn2d_ref` - plain PyTorch (zero-stuff, pad or crop, depthwise
   ``F.conv2d`` with the flipped taps, stride ``down``).  CPU tensors use it;
   it is the oracle the kernel is held against.
-* the CUDA C++ kernel ``csrc/upfirdn2d.cu`` for CUDA tensors (its header
-  says what it replaces, what bounds it and how), built at first use by
-  ``ops/cuda_build.py`` and called through ``ctypes``.
+* the CUDA C++ kernels ``csrc/upfirdn2d.cu`` for CUDA tensors (its header
+  says what they replace, what bounds them and how), built at first use by
+  ``ops/cuda_build.py`` and called through ``ctypes``.  :func:`_plan` picks
+  one of its variants per launch: a tiled form for each of (up 1, down 1),
+  (up 2, down 1) and (up 1, down 2) with 4x4 taps, C a multiple of the
+  16-byte vector and 16-byte aligned tensors, else the general form; the C
+  side refuses a variant the call does not allow.
 
 Gradients mirror the reference's autograd pair ``UpFirDn2d`` /
 ``UpFirDn2dBackward`` (op_static/upfirdn2d.py:22-145), as the JAX package's
@@ -42,9 +46,16 @@ from multi_stylegan_torch.ops import cuda_build
 # launches of the backward (K4).
 launches = 0
 grad_launches = 0
+# The variant the last launch took, a name from VARIANTS.
+last_variant = None
+
+# Variant codes of csrc/upfirdn2d.cu (enum Variant), by index.
+VARIANTS = ("general", "up1-down1", "up2-down1", "up1-down2")
+_TILED = {(1, 1): 1, (2, 1): 2, (1, 2): 3}
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # channels per 16-byte vector
 _INT_MAX = 2**31 - 1
 
 
@@ -175,19 +186,41 @@ def upfirdn2d(
     return UpFirDn2d.apply(x, kernel.detach(), int(up), int(down), _normalize_pad(pad))
 
 
+def _plan(shape, dtype, up, down, kh, kw, pad, ptrs) -> int:
+    """The kernel variant (an index of VARIANTS) for one launch on an NHWC
+    input of ``shape`` with normalized pads: a tiled form where (up, down)
+    is one of its pairs, the taps are 4x4, C is a multiple of the 16-byte
+    vector and every pointer in ``ptrs`` (input, output) is 16-byte aligned,
+    within the grid's limits; else 0, the general form.  The C side checks
+    the same conditions (``tiled_ok``) and refuses a mismatch."""
+    b, h, w, c = shape
+    variant = _TILED.get((up, down), 0)
+    vec = _VEC.get(dtype)
+    if not variant or vec is None or (kh, kw) != (4, 4) or c % vec:
+        return 0
+    if any(p % 16 for p in ptrs):
+        return 0
+    ho = out_size(h, up, down, pad[0], pad[1], kh)
+    wo = out_size(w, up, down, pad[2], pad[3], kw)
+    chunks = -(-c // (8 * vec))
+    if b > 65535 or chunks * -(-ho // 8) * -(-wo // 16) > _INT_MAX:
+        return 0
+    return variant
+
+
 def _library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(cuda_build.build("upfirdn2d")))
         fn = lib.upfirdn2d_nhwc
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
 def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
-    global launches, grad_launches
+    global launches, grad_launches, last_variant
     py0, py1, px0, px1 = pad
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"upfirdn2d: unsupported dtype {x.dtype}")
@@ -216,14 +249,17 @@ def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
     if wo * c > _INT_MAX or b * max(h, ho) > _INT_MAX or max(h, w) * up > _INT_MAX:
         raise ValueError(f"upfirdn2d: shape {tuple(x.shape)} exceeds the kernel's int range")
     y = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
+    variant = _plan(x.shape, x.dtype, up, down, kh, kw, pad, (x.data_ptr(), y.data_ptr()))
     with torch.cuda.device(x.device):
         rc = _library().upfirdn2d_nhwc(
-            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype],
+            x.data_ptr(), kernel.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], variant,
             b, h, w, c, ho, wo, kh, kw, up, down, py0, px0,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
+        raise RuntimeError(
+            f"upfirdn2d kernel ({VARIANTS[variant]}) launch failed: cudaError {rc}")
+    last_variant = VARIANTS[variant]
     if adjoint:
         grad_launches += 1
     else:

@@ -138,6 +138,67 @@ def test_upfirdn2d_grad_kernels_match_plain_autograd(cuda, shape, up, down, pad,
     torch.testing.assert_close(ggy, rggy, **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "shape,up,down,pad,variants",
+    [
+        ((1, 127, 127, 128), 1, 1, (2, 2), ("up1-down1", "up1-down1")),  # D blurs, odd maps
+        ((2, 63, 63, 256), 1, 1, (2, 2), ("up1-down1", "up1-down1")),
+        ((2, 15, 15, 768), 1, 1, (2, 2), ("up1-down1", "up1-down1")),
+        ((2, 20, 37, 64), 1, 1, (2, 1), ("up1-down1", "up1-down1")),     # H != W
+        ((2, 33, 17, 512), 1, 1, (1, 2), ("up1-down1", "up1-down1")),    # G blur adjoint pads
+        ((2, 17, 33, 8), 1, 1, (0, 3, 1, 2), ("up1-down1", "up1-down1")),  # asymmetric, C = 8
+        ((2, 9, 23, 24), 1, 1, (3, 0, -1, 2), ("up1-down1", "up1-down1")),  # crop, C = 24
+        ((3, 21, 45, 24), 2, 1, (2, 1), ("up2-down1", "up1-down2")),     # ragged width
+        ((2, 9, 13, 24), 2, 1, (2, 1, 1, 2), ("up2-down1", "up1-down2")),  # odd y0, even x0
+        ((2, 9, 11, 32), 2, 1, (3, 0), ("up2-down1", "up1-down2")),      # odd pads
+        ((4, 32, 32, 256), 2, 1, (2, 1), ("up2-down1", "up1-down2")),    # D decoder upsample
+        ((4, 64, 64, 256), 1, 2, (1, 1), ("up1-down2", "up2-down1")),    # up=2 adjoint
+        ((2, 33, 19, 8), 1, 2, (2, 1, 0, 2), ("up1-down2", "up2-down1")),
+        ((2, 16, 16, 130), 1, 1, (2, 1), ("general", "general")),        # C not a vector multiple
+    ],
+)
+def test_upfirdn2d_variants_match_plain(cuda, shape, up, down, pad, variants, dtype):
+    """Each tiled variant at its edges, forward and adjoint, against the
+    plain version and its autograd; the variant each launch took."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    taps = torch.randn((4, 4), generator=g, device=cuda)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y = up_mod.upfirdn2d(x, taps, up=up, down=down, pad=pad)
+    taken = [up_mod.last_variant]
+    gy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
+    gx = up_mod.UpFirDn2dBackward.apply(gy, taps, up, down, up_mod._normalize_pad(pad),
+                                        shape[1:3], tuple(y.shape[1:3]))
+    taken.append(up_mod.last_variant)
+    xr = x.clone().requires_grad_(True)
+    (rgx,) = torch.autograd.grad(up_mod.upfirdn2d_ref(xr, taps, up, down, pad), xr, gy)
+    assert tuple(taken) == variants
+    torch.testing.assert_close(y.float(), up_mod.upfirdn2d_ref(x, taps, up, down, pad).float(),
+                               **TOL[dtype])
+    torch.testing.assert_close(gx, rgx, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upfirdn2d_misaligned_view_takes_the_general_variant(cuda, dtype):
+    """A contiguous view one element into its storage is not 16-byte
+    aligned: forward and adjoint take the general variant and stay right."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    taps = make_blur_kernel(device=cuda)
+    flat = torch.randn(2 * 16 * 16 * 256 + 1, generator=g, device=cuda).to(dtype)
+    x = flat[1:].view(2, 16, 16, 256)
+    assert x.data_ptr() % 16
+    y = up_mod.upfirdn2d(x, taps, up=2, pad=(2, 1))
+    assert up_mod.last_variant == "general"
+    gflat = torch.randn(y.numel() + 1, generator=g, device=cuda).to(dtype)
+    gy = gflat[1:].view(y.shape)
+    gx = up_mod.UpFirDn2dBackward.apply(gy, taps, 2, 1, (2, 1, 2, 1), (16, 16), (32, 32))
+    assert up_mod.last_variant == "general"
+    xr = x.clone().requires_grad_(True)
+    (rgx,) = torch.autograd.grad(up_mod.upfirdn2d_ref(xr, taps, 2, 1, (2, 1)), xr, gy)
+    torch.testing.assert_close(y, up_mod.upfirdn2d_ref(x, taps, 2, 1, (2, 1)), **TOL[dtype])
+    torch.testing.assert_close(gx, rgx, **TOL[dtype])
+
+
 def test_cuda_calls_with_gradients_go_through_the_kernels(cuda):
     """Where slice 1 raised, a CUDA call that needs a gradient now launches
     the kernels forward and backward."""
