@@ -21,7 +21,8 @@ beside it.  Phases, each raising on failure:
               port on the CPU; a timed batch-16 forward.
 4. train    - the training CLI (``multi_stylegan_torch.cli.train
               --synthetic --epochs 1``: the flagship config, batch 24, 96
-              sequences, 4 steps) with the counts zeroed just before; then
+              sequences, 4 steps, the epoch's sample grids) with the counts
+              zeroed just before; then
               one regularised iteration on fresh random weights (every
               bias, noise weight and NonLocal gamma nonzero): ``main_step``
               with wrong order and cut-mix on, ``r1_update``,
@@ -29,7 +30,8 @@ beside it.  Phases, each raising on failure:
               parameters moved, and each sub-step's K1-K4 launches exactly
               what :func:`expected_launches` works out from the model's
               structure.  A census of the iteration's launches by call site
-              feeds phase 5.
+              feeds phase 5.  The same iteration runs once more under
+              torch.profiler for its top device ops.
 5. grads    - at every K1 / K3 call site the iteration launched (batch 24,
               12 and 6): K1 and K3 forward, K2 (dx and db) and K4 (backward
               and double backward) against the plain versions' autograd on
@@ -39,13 +41,29 @@ beside it.  Phases, each raising on failure:
 6. parity   - GPU vs CPU (plain versions, TF32 off): a D-step gradient, the
               R1 penalty's parameter gradient and the path-length gradient
               at full width, batch 2, same weights and draws.
+7. train_run - the training CLI's whole run at the flagship config: a TLFM
+              tree of 16-bit TIFFs written here (48 sequences), trap weights,
+              4 epochs (8 steps; trap weights from epoch 1, wrong order from
+              epoch 3), the sample grids and a checkpoint every epoch, FID /
+              FVD / IS every other epoch (48 samples, random-weight nets
+              read from files through
+              ``MSG_TPU_INCEPTION_PT`` / ``MSG_TPU_I3D_PT``) every epoch, a
+              torch.profiler trace of steps 2-5; then a resume for one more
+              epoch (steps 9-10) from the checkpoint.  Fails on a non-finite
+              loss or score, a failed save, a missing PNG / metric file, a
+              restored state not bitwise the saved one, a batch-15 grid site
+              on upfirdn2d's general form (C = 3 aside), or two grid samples
+              off the CPU's by more than ``SAMPLE_TOL``.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
 of upfirdn2d the launch took), one ``edge`` line per upfirdn2d edge case,
-the card's name and power limit,
+one ``train_run`` line (loader, step, grid, checkpoint and metric seconds,
+checkpoint MB, peak memory, the top 15 device ops), the card's name and
+power limit,
 one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
-In the kernels line ``launches`` sums the three main-path runs (sampling
-CLI, training CLI, regularised iteration), each counted from zero, and
+In the kernels line ``launches`` sums the four main-path runs (sampling
+CLI, training CLI, regularised iteration, training run with its resume),
+each counted from zero, and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per regularised
 training iteration at batch 24: each training call site's time per launch
 times its launches in that iteration, summed.
@@ -483,6 +501,7 @@ def phase_profile(gpu_gen, z, noise) -> dict:
 # The training phases' device and configs, module settings so that a CPU
 # rehearsal (with the kernels' plain versions standing in) can swap them.
 DEVICE = "cuda"
+CONFIG_ARGS = []  # training CLI flags that pick the config (the flagship: none)
 
 
 def train_configs():
@@ -492,9 +511,17 @@ def train_configs():
     return GeneratorConfig(), DiscriminatorConfig(no_rfp=True)
 
 
-def train_cli_args(seed: int):
+def train_cli_args(seed: int, experiment: str):
     return ["--synthetic", "--epochs", "1", "--batch_size", str(TRAIN_BATCH),
-            "--seed", str(seed), "--device", DEVICE]
+            "--seed", str(seed), "--device", DEVICE, "--experiment_path", experiment]
+
+
+def grid_launches(gcfg, epochs: int) -> dict:
+    """K1 / K3 launches of the end-of-epoch sample grids: four G forwards a
+    epoch (EMA and training G, fixed and random noise), each mapping two
+    latents (the grids mix)."""
+    s = model_sites(gcfg, None)
+    return {"K1": 4 * epochs * s["g_k1"], "K2": 0, "K3": 4 * epochs * s["g_k3"], "K4": 0}
 
 
 def sync() -> None:
@@ -531,15 +558,18 @@ def model_sites(gcfg, dcfg) -> dict:
     K3 per post-upsample blur and per skip upsample, in both towers.  With
     remat every block (all blocks: remat_min_px 0) is recomputed once per
     backward pass that reaches it."""
-    if gcfg.remat_min_px or dcfg.remat_min_px:
+    if gcfg.remat_min_px or (dcfg is not None and dcfg.remat_min_px):
         raise ValueError("the launch formula assumes remat_min_px = 0 (every block)")
-    enc, dec = dcfg.encoder_channels, dcfg.decoder_channels
-    n_res = (len(enc) - 1) + (len(dec) - 1)
     n = gcfg.n_stages
     styled = 2 * (1 + 2 * n)
+    d_sites = {}
+    if dcfg is not None:
+        enc, dec = dcfg.encoder_channels, dcfg.decoder_channels
+        n_res = (len(enc) - 1) + (len(dec) - 1)
+        d_sites = dict(d_k1=2 * n_res + 2, d_k3=(len(enc) - 1) + len(dec),
+                       d_remat_k1=2 * n_res if dcfg.remat else 0)
     return dict(
-        d_k1=2 * n_res + 2, d_k3=(len(enc) - 1) + len(dec),
-        d_remat_k1=2 * n_res if dcfg.remat else 0,
+        **d_sites,
         g_k1=2 * gcfg.depth_style_mapping + styled, g_styled=styled,
         g_k3=4 * n, g_blur=2 * n,
         g_remat_k1=styled if gcfg.remat else 0, g_remat_k3=4 * n if gcfg.remat else 0)
@@ -668,15 +698,17 @@ def phase_train_cli(seed: int):
 
     from multi_stylegan_torch.cli import train
 
-    zero_counts()
-    run = train.main(train_cli_args(seed))
-    counts = read_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        run = train.main(train_cli_args(seed, os.path.join(tmp, "experiment")))
+        counts = read_counts()
     steps = run["steps"]
     gcfg, dcfg = train_configs()
-    # one epoch of one: no wrong order, cut-mix probability 0, no lazy step
+    # one epoch of one: no wrong order, cut-mix probability 0, no lazy step;
+    # then the epoch's sample grids
     per_step = {k: expected_launches(gcfg, dcfg, "d_step")[k]
                 + expected_launches(gcfg, dcfg, "g_step")[k] for k in counts}
-    want = {k: v * steps for k, v in per_step.items()}
+    want = {k: v * steps + grid_launches(gcfg, 1)[k] for k, v in per_step.items()}
     state = run["state"]
     if steps != 4 or not run["finite"] or not all_finite(state.generator) \
             or not all_finite(state.discriminator):
@@ -757,8 +789,18 @@ def phase_train_iteration(seed: int):
         want = expected_launches(gcfg, dcfg, name, wrong_order=(name == "d_step"))
         if per_sub[name] != want:
             raise AssertionError(f"{name}: launches {per_sub[name]}, expected {want}")
+    # the same iteration once more under torch.profiler (the trainer's
+    # profiling utility), apart from the timed one above
+    from multi_stylegan_torch.utils.profiling import trace
+
+    with tempfile.TemporaryDirectory() as tmp, trace(tmp) as tr:
+        ts.main_step(state, real, flags, draws)
+        ts.r1_update(state, real)
+        ts.path_length_update(state, draws)
+        sync()
     row = {"ms": timings, "launches": counts, "launches_by_sub_step": per_sub,
-           "peak_memory_gib": peak, "metrics": host, "ada_p": float(state.ada.p)}
+           "peak_memory_gib": peak, "metrics": host, "ada_p": float(state.ada.p),
+           "top_device_ops": tr.top_device_ops(15)}
     print("slice train", json.dumps(row), flush=True)
     del state, gen, disc
     empty_cache()
@@ -1005,6 +1047,297 @@ def phase_train_parity(seed: int) -> dict:
     return row
 
 
+# --------------------------------------------------------------- train run
+
+
+TRAIN_RUN_EPOCHS = 4
+TRAIN_RUN_SAMPLES = 48  # FID / FVD / IS samples here; the protocol takes 5000
+PROTOCOL_SAMPLES = 5000
+GRID_BATCH = 15  # the fixed validation latents of the sample grids
+
+
+class MethodTimer:
+    """Host seconds of every call of some class methods while active (each
+    call ends with a device sync)."""
+
+    def __init__(self, *targets):
+        from collections import defaultdict
+
+        self.targets = targets
+        self.seconds = defaultdict(list)
+
+    def __enter__(self):
+        self.originals = [(cls, name, cls.__dict__[name]) for cls, name in self.targets]
+        for cls, name, orig in self.originals:
+
+            def timed(obj, *a, _orig=orig, _key=f"{cls.__name__}.{name}", **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _orig(obj, *a, **kw)
+                finally:
+                    sync()
+                    self.seconds[_key].append(time.perf_counter() - t0)
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.originals:
+            setattr(cls, name, orig)
+
+
+class GridVariants:
+    """The upfirdn2d variant of every launch on a batch-15 tensor (the
+    sample grids), by wrapping the launch function (counts untouched)."""
+
+    def __enter__(self):
+        from multi_stylegan_torch.ops import upfirdn2d as up_mod
+
+        self.mod, self.orig, self.seen = up_mod, up_mod._upfirdn2d_cuda, {}
+
+        def k3(x, kernel, up, down, pad, adjoint=False):
+            out = self.orig(x, kernel, up, down, pad, adjoint)
+            if x.shape[0] == GRID_BATCH:
+                self.seen[(tuple(x.shape), up, down, tuple(pad))] = self.mod.last_variant
+            return out
+        up_mod._upfirdn2d_cuda = k3
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._upfirdn2d_cuda = self.orig
+
+
+def random_eval_net(module, seed: int):
+    """Random weights that keep the features input-dependent 40 layers down:
+    He-scaled convs, near-identity batch norms, and an ``fc`` scaled so that
+    the class softmax spreads (PyTorch's default init collapses every image
+    to one feature vector, FID to 0 and IS to 1)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if p.dim() > 1:
+                gain = 3e3 if name.startswith("fc.") else 2.0
+                p.copy_(torch.randn(p.shape, generator=g) * (gain / p[0].numel()) ** 0.5)
+            elif name.endswith("bn.weight"):
+                p.copy_(1 + 0.05 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(0.05 * torch.randn(p.shape, generator=g))
+        for name, buf in module.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.05 * torch.randn(buf.shape, generator=g))
+            elif name.endswith("running_var"):
+                buf.copy_(1 + 0.1 * torch.rand(buf.shape, generator=g))
+    return module
+
+
+def host_snapshot(trainer) -> dict:
+    """Every tensor and rng state a resumed run depends on, copied to the host."""
+    from multi_stylegan_torch.data.pipeline import loader_state
+    from multi_stylegan_torch.io.checkpoint import train_state_dict
+
+    flat = {}
+
+    def visit(prefix, value):
+        if isinstance(value, dict):
+            for k, v in value.items():
+                visit(f"{prefix}.{k}", v)
+        elif isinstance(value, (list, tuple)):
+            for i, v in enumerate(value):
+                visit(f"{prefix}.{i}", v)
+        elif hasattr(value, "detach"):
+            flat[prefix] = value.detach().cpu().clone()
+        else:
+            flat[prefix] = value
+
+    visit("state", train_state_dict(trainer.state))
+    visit("loader", loader_state(trainer.loader))
+    flat["draws"] = trainer.draws.generator.get_state().clone()
+    return flat
+
+
+def phase_train_run(seed: int, iteration_ops: list):
+    """The training CLI's whole run at the flagship config on a TLFM TIFF
+    tree: trap weights, logger, sample grids, checkpoints, FID / FVD / IS
+    with random-weight nets loaded from files, a torch.profiler trace of
+    steps 2-5, then a resume.  ``iteration_ops`` (the profiled regularised
+    iteration's top device ops) goes into the printed line beside the
+    run's."""
+    import shutil
+    import warnings
+
+    import torch
+
+    from multi_stylegan_torch.cli import train
+    from multi_stylegan_torch.data.pipeline import make_loader
+    from multi_stylegan_torch.data.tlfm import TLFMDataset, write_tlfm_tree
+    from multi_stylegan_torch.eval import metrics
+    from multi_stylegan_torch.eval.i3d import InceptionI3D
+    from multi_stylegan_torch.eval.inception_v3 import InceptionV3
+    from multi_stylegan_torch.models.generator import Generator
+    from multi_stylegan_torch.train.loop import Trainer
+
+    gcfg, _ = train_configs()
+    tmp = tempfile.mkdtemp(prefix="train_run_")
+    env = {"MSG_TPU_INCEPTION_PT": os.path.join(tmp, "inception.pt"),
+           "MSG_TPU_I3D_PT": os.path.join(tmp, "i3d.pt")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    try:
+        # one position, one trap, 3 z x 18 timesteps of BF, GFP, RFP: 48 sequences
+        t0 = time.perf_counter()
+        tree = write_tlfm_tree(os.path.join(tmp, "tlfm"), n_traps=1, n_times=18,
+                               size=gcfg.resolution[0], seed=seed)
+        files = [os.path.join(tree, "Pos0", f) for f in os.listdir(os.path.join(tree, "Pos0"))]
+        tree_row = {"files": len(files), "mb": sum(map(os.path.getsize, files)) / 2**20,
+                    "write_s": time.perf_counter() - t0}
+        torch.save(random_eval_net(InceptionV3(), seed).state_dict(), env["MSG_TPU_INCEPTION_PT"])
+        torch.save(random_eval_net(InceptionI3D(num_classes=400), seed + 1).state_dict(),
+                   env["MSG_TPU_I3D_PT"])
+        os.environ.update(env)
+        # a batch of 24 read and collated in this process (the workers' job)
+        dataset = TLFMDataset(tree, no_rfp=True)
+        batches = iter(make_loader(dataset, TRAIN_BATCH, seed=seed))
+        t0 = time.perf_counter()
+        next(batches)
+        loader_ms = (time.perf_counter() - t0) * 1e3
+
+        exp, prof = os.path.join(tmp, "experiment"), os.path.join(tmp, "profile")
+        common = CONFIG_ARGS + [
+            "--path_to_data", tree, "--trap_weights", "--batch_size", str(TRAIN_BATCH),
+            "--seed", str(seed), "--device", DEVICE, "--experiment_path", exp]
+        # validation every other epoch: each FID pass spends ~25-60 s in
+        # scipy's sqrtm of two 2048 x 2048 products on the host, and four of
+        # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W)
+        overrides = dict(checkpoint_every_n_epochs=1, validate_every_n_epochs=2)
+        timer = MethodTimer((Trainer, "_save_sample_grids"), (Trainer, "save_checkpoint"),
+                            (metrics.FID, "__call__"), (metrics.FVD, "__call__"),
+                            (metrics.IS, "__call__"))
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught, timer, GridVariants() as grids:
+            warnings.simplefilter("always")
+            zero_counts()
+            run = train.main(common + ["--epochs", str(TRAIN_RUN_EPOCHS), "--profile_dir", prof],
+                             config_overrides=overrides, validation_samples=TRAIN_RUN_SAMPLES)
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
+        trainer = run["trainer"]
+        failed_saves = [str(w.message) for w in caught if "save failed" in str(w.message)]
+        if failed_saves:
+            raise AssertionError(f"guarded saves failed: {failed_saves}")
+        steps = TRAIN_RUN_EPOCHS * len(dataset) // TRAIN_BATCH
+        if not run["finite"] or run["steps"] != steps or trainer.state.step != steps:
+            raise AssertionError(f"train run: {run['steps']} steps, finite={run['finite']}")
+        if not all(counts.values()):
+            raise AssertionError(f"train run: a kernel was never launched: {counts}")
+        bad = {k: v for k, v in grids.seen.items() if v == "general" and k[0][-1] != 3}
+        if not grids.seen or bad:
+            raise AssertionError(f"batch-15 grid sites on the general variant: {bad or 'none seen'}")
+
+        # what the run left in its experiment directory
+        logger = trainer.logger
+        plots = os.listdir(logger.path_plots)
+        if len(plots) != TRAIN_RUN_EPOCHS * 4 * GRID_BATCH * 2:
+            raise AssertionError(f"{len(plots)} grid PNGs")
+        streams = set(run["history"][0]) - {"seconds", "data_wait_seconds"}
+        streams |= {"seqs_per_sec"} | {f"{m}_{c}" for m in ("FID", "FVD", "IS") for c in ("bf", "gfp")}
+        missing = [s for s in streams if not os.path.isfile(os.path.join(logger.path_metrics, f"{s}.npy"))]
+        if missing or not os.path.isfile(os.path.join(logger.path_hyperparameters,
+                                                      "hyperparameter.txt")):
+            raise AssertionError(f"missing logger files: {missing or 'hyperparameter.txt'}")
+        scores = {k: v for k, v in logger.metrics.items() if k.split("_")[0] in ("FID", "FVD", "IS")}
+        n_validations = TRAIN_RUN_EPOCHS // overrides["validate_every_n_epochs"]
+        if len(scores) != 6 or not all(len(v) == n_validations and all(map(math.isfinite, v))
+                                       for v in scores.values()):
+            raise AssertionError(f"validation scores: {scores}")
+
+        # two of the last epoch's fixed-noise EMA grid samples vs the CPU
+        z1, z2 = trainer.validation_noise
+        gpu = trainer.sample(z1, z2, trainer.grid_generator(TRAIN_RUN_EPOCHS - 1),
+                             randomize_noise=False)[:2].cpu()
+        inject = int(torch.randint(1, gcfg.n_latents - 1, (1,),
+                                   generator=trainer.grid_generator(TRAIN_RUN_EPOCHS - 1),
+                                   device=trainer.device))
+        cpu_g = Generator(gcfg)
+        cpu_g.load_state_dict({k: v.cpu() for k, v in trainer.state.g_ema.state_dict().items()})
+        with torch.no_grad():
+            ref = cpu_g.eval()(z1[:2].cpu(), z2[:2].cpu(), inject_index=inject,
+                               randomize_noise=False)
+        grid_peak = float(ref.abs().max())
+        grid_err = float((gpu - ref).abs().max())
+        if not (math.isfinite(grid_err) and grid_err <= SAMPLE_TOL * max(1.0, grid_peak)):
+            raise AssertionError(f"grid sample GPU vs CPU: max abs err {grid_err}, peak {grid_peak}")
+
+        if trainer.trace is None or trainer.trace.path is None:
+            raise AssertionError("no profiler trace of steps 2-5")
+        top_ops = trainer.trace.top_device_ops(15)
+        saved = host_snapshot(trainer)
+        ckpt_mb = os.path.getsize(trainer.ckpt.path(steps)) / 2**20
+        history = run["history"]
+        del run, trainer, cpu_g
+        empty_cache()
+
+        # resume: a fresh CLI call on the same experiment, one more epoch
+        restored, restore_s = {}, []
+        orig_restore = Trainer.restore_latest
+
+        def restore(self, directory=None):
+            t0 = time.perf_counter()
+            ok = orig_restore(self, directory)
+            sync()
+            restore_s.append(time.perf_counter() - t0)
+            restored.update(host_snapshot(self))
+            return ok
+        Trainer.restore_latest = restore
+        try:
+            zero_counts()
+            resumed = train.main(common + ["--epochs", "1", "--no_validation_metrics",
+                                           "--load_checkpoint", os.path.join(exp, "models")],
+                                 config_overrides=overrides)
+            resume_counts = read_counts()
+        finally:
+            Trainer.restore_latest = orig_restore
+        differ = [k for k in saved if not (
+            torch.equal(saved[k], restored[k]) if hasattr(saved[k], "dtype") else saved[k] == restored[k])]
+        if restored.keys() != saved.keys() or differ:
+            raise AssertionError(f"restored state differs from the saved one: {differ[:8]}")
+        if resumed["state"].step != steps + len(dataset) // TRAIN_BATCH or not resumed["finite"]:
+            raise AssertionError(f"resume went to step {resumed['state'].step}")
+        del resumed
+        empty_cache()
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    secs = timer.seconds
+    metric_s = {m: secs[f"{m}.__call__"] for m in ("FID", "FVD", "IS")}
+    row = {
+        "tree": tree_row, "sequences": len(dataset), "steps": steps,
+        "resumed_to": steps + len(dataset) // TRAIN_BATCH,
+        "loader_ms_per_batch": loader_ms,
+        "data_wait_s": [m["data_wait_seconds"] for m in history],
+        "step_s": [m["seconds"] for m in history],
+        "grid_save_s": secs["Trainer._save_sample_grids"],
+        "checkpoint_save_s": secs["Trainer.save_checkpoint"], "checkpoint_restore_s": restore_s,
+        "checkpoint_mb": ckpt_mb,
+        "metric_s": metric_s, "metric_samples": TRAIN_RUN_SAMPLES,
+        "metric_s_scaled_to_5000": {m: [s * PROTOCOL_SAMPLES / TRAIN_RUN_SAMPLES for s in v]
+                                    for m, v in metric_s.items()},
+        "scores_last": {k: v[-1] for k, v in scores.items()},
+        "peak_memory_gib": peak, "launches": counts, "resume_launches": resume_counts,
+        "grid_sites": {str(k): v for k, v in grids.seen.items()},
+        "grid_sample_max_abs_err": grid_err, "grid_sample_peak": grid_peak,
+        "top_device_ops_steps_2_5": top_ops,
+        "top_device_ops_regularised_iteration": iteration_ops,
+    }
+    print("train_run", json.dumps(row), flush=True)
+    return {k: counts[k] + resume_counts[k] for k in counts}, row
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1078,38 +1411,47 @@ def main() -> int:
                 print(f"ptxas {name}: {line.strip()}")
     print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    report = phase_kernels(args.seed)
-    counts, slice_row, forward_inputs = phase_slice(args.seed, report)
+    seconds = {"build": time.perf_counter() - t0}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    report = phase("kernels", phase_kernels, args.seed)
+    counts, slice_row, forward_inputs = phase("sample", phase_slice, args.seed, report)
     if args.profile:
         slice_row["profile"] = phase_profile(*forward_inputs)
     del forward_inputs
-    t_train = time.perf_counter()
-    cli_counts, cli_row = phase_train_cli(args.seed)
-    iter_counts, census, iter_row = phase_train_iteration(args.seed)
-    train_rows = phase_grad_sites(args.seed, census)
-    parity_row = phase_train_parity(args.seed)
-    train_seconds = time.perf_counter() - t_train
+    cli_counts, cli_row = phase("train_cli", phase_train_cli, args.seed)
+    iter_counts, census, iter_row = phase("train_iteration", phase_train_iteration, args.seed)
+    train_rows = phase("grads", phase_grad_sites, args.seed, census)
+    parity_row = phase("parity", phase_train_parity, args.seed)
+    run_counts, run_row = phase("train_run", phase_train_run, args.seed,
+                                iter_row["top_device_ops"])
 
     sample_counts = {"K1": counts["fused_leaky_relu"], "K2": 0,
                      "K3": counts["upfirdn2d"], "K4": 0}
-    launches = {k: sample_counts[k] + cli_counts[k] + iter_counts[k] for k in KERNELS}
+    launches = {k: sample_counts[k] + cli_counts[k] + iter_counts[k] + run_counts[k]
+                for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     line = kernel_line(train_rows, report, launches)
-    total = time.perf_counter() - t_start
+    seconds["total"] = total = time.perf_counter() - t_start
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": smi, "sampling_sites": report, "slice": slice_row,
              "train_cli": cli_row, "train_iteration": iter_row, "train_sites": train_rows,
-             "train_parity": parity_row, "launches_by_path": {
+             "train_parity": parity_row, "train_run": run_row, "launches_by_path": {
                  "sample_cli": sample_counts, "train_cli": cli_counts,
-                 "train_iteration": iter_counts},
-             "seconds": {"total": total, "training_phases": train_seconds}, **line}, indent=1))
-    print(f"total {total:.1f} s (training phases {train_seconds:.1f} s)")
+                 "train_iteration": iter_counts, "train_run": run_counts},
+             "seconds": seconds, **line}, indent=1))
+    print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -46,14 +46,3 @@ class SyntheticTLFMDataset:
         out += rng.normal(0, 0.02, size=out.shape).astype(np.float32)
         return np.clip(out, 0.0, 1.0)
 
-
-def iterate_batches(dataset, batch_size: int, rng: np.random.Generator):
-    """One epoch of shuffled [B, ...] numpy batches, the last partial batch
-    dropped (the JAX package's BatchLoader order for the same ``rng``)."""
-    if len(dataset) < batch_size:
-        raise ValueError(f"dataset of {len(dataset)} samples cannot fill a batch of {batch_size}")
-    idx = np.arange(len(dataset))
-    rng.shuffle(idx)
-    for b in range(len(dataset) // batch_size):
-        sel = idx[b * batch_size:(b + 1) * batch_size]
-        yield np.stack([dataset[i] for i in sel])

@@ -1,26 +1,47 @@
-"""The training loop around the step (the core of the JAX package's
-``Trainer.train``, train/loop.py:111-374).
+"""The training loop around the step (the JAX package's train/loop.py,
+``Trainer``; reference model_wrapper.py).
 
-Per batch: the epoch's flags (wrong order from 3/4 of the epochs on, a
-cut-mix coin whose probability rises linearly to 0.5), ``main_step``, and on
+Per batch: the epoch's flags (wrong order from 3/4 of the epochs on, trap
+weights from 1/4 on, a cut-mix coin whose probability rises linearly to
+0.5; all three at once under ``resume_training``), ``main_step``, and on
 every 16th step R1 and the path-length update, the EMA then following the
 path-length update instead of the main step.  The top-k schedule runs over
-the middle half of all steps.  Checkpoints, sample grids, validation, the
-logger and trap weights are not ported yet.
+the middle half of all steps.  Every step's metrics go to the logger.
+
+After every epoch: ``seqs_per_sec``, the fixed-latent sample grids (EMA and
+training generator, fixed and random noise), validation every
+``validate_every_n_epochs`` and a checkpoint every
+``checkpoint_every_n_epochs``.  A failing grid or checkpoint save warns and
+training goes on, as in the JAX loop: the last checkpoint stays the restore
+point.  With ``profile_dir`` the steps 2 to 5 of the run are traced by
+``torch.profiler`` (step 1 warms up), as in the JAX loop.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from multi_stylegan_torch.data.synthetic import iterate_batches
+from multi_stylegan_torch.data.pipeline import load_loader_state, loader_state
+from multi_stylegan_torch.io.checkpoint import (
+    CheckpointManager,
+    load_train_state,
+    train_state_dict,
+)
+from multi_stylegan_torch.io.logger import Logger
 from multi_stylegan_torch.models.config import TrainingConfig
 from multi_stylegan_torch.train.state import create_train_state
 from multi_stylegan_torch.train.steps import StepFlags, TrainStep
+from multi_stylegan_torch.utils.profiling import Trace
+from multi_stylegan_torch.utils.telemetry import RunTelemetry
+
+
+PROFILE_STEPS = 4
 
 
 def schedule_coin(seed: int, step: int) -> float:
@@ -41,57 +62,193 @@ def top_k_iterations(cfg: TrainingConfig, total_steps: int) -> Tuple[int, int]:
 
 
 class Trainer:
-    """Trains a generator / discriminator pair on a dataset of [C, T, H, W]
-    numpy sequences, with the draws from ``draws`` (train/draws.py)."""
+    """Trains a generator / discriminator pair on the batches of ``loader``
+    (data/pipeline.py), with the draws from ``draws`` (train/draws.py)."""
 
-    def __init__(self, generator, discriminator, config: TrainingConfig, dataset, draws,
-                 epochs: int = 100) -> None:
+    def __init__(self, generator, discriminator, config: TrainingConfig, loader, draws,
+                 epochs: int = 100, data_logger: Optional[Logger] = None,
+                 validation_metrics: Sequence[Callable] = (),
+                 trap_weights_map: Optional[np.ndarray] = None,
+                 profile_dir: Optional[str] = None) -> None:
         self.cfg = config
-        self.dataset = dataset
+        self.loader = loader
         self.draws = draws
         self.epochs = epochs
         self.device = next(generator.parameters()).device
-        total = epochs * (len(dataset) // config.batch_size)
-        start, final = top_k_iterations(config, total)
+        self.logger = data_logger or Logger()
+        self.validation_metrics = tuple(validation_metrics)
+        self.best_fvd = float("inf")
+        self.profile_dir = profile_dir
+        self.trace: Optional[Trace] = None
+        start, final = top_k_iterations(config, epochs * len(loader))
+        trap = None if trap_weights_map is None else torch.as_tensor(trap_weights_map).to(self.device)
         self.step_fn = TrainStep(config, top_k_start_iteration=start,
-                                 top_k_final_iteration=final)
+                                 top_k_final_iteration=final, trap_weights_map=trap)
         self.state = create_train_state(generator, discriminator, config)
-        self._batch_rng = np.random.default_rng(config.seed)
+        self.ckpt = CheckpointManager(self.logger.path_models)
+        # fixed validation latents: 15 pairs, always mixed (model_wrapper.py:99-102)
+        gen = torch.Generator(device=self.device).manual_seed(config.seed + 1)
+        dim = generator.config.latent_dimensions
+        self.validation_noise = tuple(
+            torch.randn((15, dim), generator=gen, device=self.device) for _ in range(2))
 
-    def _epoch_flags(self, epoch: int) -> Tuple[bool, float]:
-        """(wrong order, cut-mix probability) of an epoch (loop.py:299-305)."""
+    # ------------------------------------------------------------- sampling
+
+    @torch.no_grad()
+    def sample(self, z1: torch.Tensor, z2: Optional[torch.Tensor], generator: torch.Generator,
+               ema: bool = True, randomize_noise: bool = True) -> torch.Tensor:
+        """Images of the EMA (or training) generator; ``z2`` mixes at a drawn
+        layer; ``generator`` draws the mixing layer and the noise."""
+        g = self.state.g_ema if ema else self.state.generator
+        return g(z1, z2, randomize_noise=randomize_noise, generator=generator)
+
+    # -------------------------------------------------------------- training
+
+    def _epoch_flags(self, epoch: int) -> Tuple[bool, bool, float]:
+        """(wrong order, trap weights, cut-mix probability) of an epoch
+        (loop.py:299-305)."""
         cfg = self.cfg
         resume = cfg.resume_training
         wrong_order = (epoch >= cfg.wrong_order_start * self.epochs) or resume
+        trap = (cfg.trap_weight_start * self.epochs <= epoch) or resume
         cut_mix_prob = 0.5 if resume else (0.5 / self.epochs) * epoch
-        return wrong_order, cut_mix_prob
+        return wrong_order, trap, cut_mix_prob
+
+    def _run_step(self, real: torch.Tensor, flags: StepFlags, lazy_d: bool,
+                  lazy_g: bool) -> Dict[str, torch.Tensor]:
+        state, step_fn = self.state, self.step_fn
+        metrics = step_fn.main_step(state, real, flags, self.draws)
+        zero = torch.zeros((), device=self.device)
+        metrics["loss_discriminator_regularization"] = (
+            step_fn.r1_update(state, real) if lazy_d else zero)
+        pl_pen, pl = step_fn.path_length_update(state, self.draws) if lazy_g else (zero, zero)
+        metrics.update(loss_path_length_regularization=pl_pen, path_length=pl)
+        return metrics
 
     def train(self, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
               ) -> List[Dict[str, float]]:
-        """Run every epoch; returns each step's metrics as host floats."""
-        cfg, state, step_fn = self.cfg, self.state, self.step_fn
+        """Run every epoch; returns each step's metrics as host floats, with
+        the step's ``seconds`` once its batch was there and its
+        ``data_wait_seconds`` (the time it waited for the batch)."""
+        cfg, state = self.cfg, self.state
+        telemetry = RunTelemetry("MultiStyleGAN", self.epochs,
+                                 os.path.join(self.logger.path_metrics, "eta.log"))
+        telemetry.start()
         history = []
         for epoch in range(self.epochs):
-            wrong_order, cm_prob = self._epoch_flags(epoch)
-            for batch in iterate_batches(self.dataset, cfg.batch_size, self._batch_rng):
+            wrong_order, trap, cm_prob = self._epoch_flags(epoch)
+            t_epoch, n_seqs = time.perf_counter(), 0
+            batches = iter(self.loader)
+            while True:
                 t0 = time.perf_counter()
-                real = torch.from_numpy(batch).to(self.device)
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                real = batch.to(self.device, non_blocking=True)
+                t1 = time.perf_counter()
                 step = state.step + 1
-                lazy_d = step % cfg.lazy_discriminator_regularization == 0
-                lazy_g = step % cfg.lazy_generator_regularization == 0
-                flags = StepFlags(wrong_order=wrong_order,
+                if self.profile_dir and step == 2:
+                    self.trace = Trace(self.profile_dir)
+                    self.trace.start()
+                flags = StepFlags(wrong_order=wrong_order, trap_weight=trap,
                                   do_cut_mix=schedule_coin(cfg.seed, step) <= cm_prob,
-                                  do_ema=not lazy_g)
-                metrics = step_fn.main_step(state, real, flags, self.draws)
-                zero = torch.zeros((), device=self.device)
-                metrics["loss_discriminator_regularization"] = (
-                    step_fn.r1_update(state, real) if lazy_d else zero)
-                pl_pen, pl = (step_fn.path_length_update(state, self.draws) if lazy_g
-                              else (zero, zero))
-                metrics.update(loss_path_length_regularization=pl_pen, path_length=pl)
+                                  do_ema=step % cfg.lazy_generator_regularization != 0)
+                metrics = self._run_step(real, flags,
+                                         step % cfg.lazy_discriminator_regularization == 0,
+                                         step % cfg.lazy_generator_regularization == 0)
                 host = {k: float(v) for k, v in metrics.items()}  # waits for the device
-                host["seconds"] = time.perf_counter() - t0
+                seconds = time.perf_counter() - t1
+                if self._tracing() and step >= 1 + PROFILE_STEPS:
+                    self.trace.stop()
+                for name, value in host.items():
+                    self.logger.log_metric(name, value)
+                host.update(seconds=seconds, data_wait_seconds=t1 - t0)
                 history.append(host)
+                n_seqs += real.shape[0]
                 if on_step is not None:
                     on_step(state.step, host)
+            self.logger.log_metric("seqs_per_sec", n_seqs / max(time.perf_counter() - t_epoch, 1e-9))
+            telemetry.step()
+            self._guarded(lambda: self._save_sample_grids(epoch), epoch, "sample-grid save",
+                          "training continues without this epoch's grids")
+            if (epoch + 1) % cfg.validate_every_n_epochs == 0:
+                self.validation()
+            self.logger.save()
+            if (epoch + 1) % cfg.checkpoint_every_n_epochs == 0:
+                self._guarded(self.save_checkpoint, epoch, "checkpoint save",
+                              "training continues - the previous checkpoint remains the "
+                              "restore point")
+        if self._tracing():  # a run shorter than the profile window
+            self.trace.stop()
         return history
+
+    def _tracing(self) -> bool:
+        return self.trace is not None and self.trace.path is None
+
+    @staticmethod
+    def _guarded(fn: Callable[[], object], epoch: int, what: str, consequence: str) -> None:
+        """Run an end-of-epoch save; a failure warns instead of ending the
+        run (the training state itself is untouched by these saves)."""
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 - any failure of a save is reported, not fatal
+            warnings.warn(f"{what} failed at epoch {epoch + 1} ({type(exc).__name__}: "
+                          f"{str(exc)[:200]}); {consequence}.", RuntimeWarning)
+
+    def _save_sample_grids(self, epoch: int) -> None:
+        """Fixed-latent grids of the EMA and the training generator, with
+        fixed and with random per-layer noise (model_wrapper.py:147-174)."""
+        z1, z2 = self.validation_noise
+        for ema, tag in ((True, "prediction_ema"), (False, "prediction")):
+            for randomize, name in ((False, f"{tag}_{epoch + 1}"), (True, f"{tag}_rand_{epoch + 1}")):
+                images = self.sample(z1, z2, self.grid_generator(epoch), ema=ema,
+                                     randomize_noise=randomize)
+                self.logger.save_prediction(images.cpu().numpy(), name)
+
+    def grid_generator(self, epoch: int) -> torch.Generator:
+        """The draws (mixing layer, noise) of an epoch's grids, a pure
+        function of (seed, epoch) as the JAX grids' key (loop.py:450)."""
+        seed = int(np.random.SeedSequence([self.cfg.seed + 2, epoch]).generate_state(1)[0])
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    # ------------------------------------------------------------ validation
+
+    def validation(self) -> None:
+        """FID / FVD / IS of the EMA generator (model_wrapper.py:197-243),
+        logged as ``<Name>_bf`` / ``<Name>_gfp``; tracks the best FVD."""
+        for metric in self.validation_metrics:
+            scores = metric(generator_apply=lambda z1, z2, gen: self.sample(z1, z2, gen),
+                            dataset=self.loader)
+            name = type(metric).__name__
+            scores = (scores,) if np.isscalar(scores) else tuple(scores)
+            for channel, score in zip(("bf", "gfp", "rfp"), scores):
+                self.logger.log_metric(f"{name}_{channel}", float(score))
+            if "FVD" in name and float(scores[0]) < self.best_fvd:
+                self.best_fvd = float(scores[0])
+
+    # ------------------------------------------------------- checkpoints
+
+    def checkpoint_payload(self) -> Dict[str, object]:
+        """The training state, the draws' generator state and the loader's
+        rng states."""
+        payload = {"train_state": train_state_dict(self.state),
+                   "loader": loader_state(self.loader)}
+        if hasattr(self.draws, "generator"):
+            payload["draws"] = self.draws.generator.get_state()
+        return payload
+
+    def save_checkpoint(self) -> str:
+        return self.ckpt.save(self.state.step, self.checkpoint_payload())
+
+    def restore_latest(self, directory: Optional[str] = None) -> bool:
+        """Restore the newest checkpoint of ``directory`` (default this
+        trainer's) into the live state, in place; False if there is none."""
+        ckpt = self.ckpt if directory is None else CheckpointManager(directory)
+        if ckpt.latest_step() is None:
+            return False
+        saved = ckpt.load()
+        load_train_state(self.state, saved["train_state"])
+        load_loader_state(self.loader, saved["loader"])
+        if "draws" in saved:
+            self.draws.generator.set_state(saved["draws"])
+        return True

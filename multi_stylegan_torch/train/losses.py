@@ -9,17 +9,26 @@ returned penalty w.r.t. the parameters, so both run a double backward
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 
+def apply_pixel_weight(x: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` times a [H, W] pixel-weight map broadcast as [1, 1, 1, H, W]
+    (loss.py:124-128); ``x`` itself without one."""
+    return x if weight is None else x * weight.reshape(1, 1, 1, *weight.shape[-2:])
+
+
 def non_saturating_discriminator_loss(prediction_real: torch.Tensor,
-                                      prediction_fake: torch.Tensor):
-    """(mean softplus(-real), mean softplus(fake)) (loss.py:134-170)."""
-    return F.softplus(-prediction_real).mean(), F.softplus(prediction_fake).mean()
+                                      prediction_fake: torch.Tensor,
+                                      weight: Optional[torch.Tensor] = None):
+    """(mean softplus(-real), mean softplus(fake)), each optionally weighted
+    per pixel (loss.py:134-170)."""
+    return (apply_pixel_weight(F.softplus(-prediction_real), weight).mean(),
+            apply_pixel_weight(F.softplus(prediction_fake), weight).mean())
 
 
 def non_saturating_discriminator_loss_cut_mix(prediction: torch.Tensor, label: torch.Tensor):

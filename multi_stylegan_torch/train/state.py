@@ -80,6 +80,19 @@ class ClippedAdam:
         self.count = count
         return apply
 
+    def state_dict(self) -> dict:
+        """The Adam moments (aligned with ``params``) and both counters."""
+        return {"exp_avg": list(self.exp_avg), "exp_avg_sq": list(self.exp_avg_sq),
+                "count": self.count, "notfinite_count": self.notfinite_count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` into this optimizer's tensors in place."""
+        for dst, src in zip(self.exp_avg + self.exp_avg_sq, state["exp_avg"] + state["exp_avg_sq"]):
+            dst.copy_(src)
+        self.count.copy_(state["count"])
+        self.notfinite_count.copy_(state["notfinite_count"])
+
 
 def make_generator_optimizer(generator: nn.Module, cfg: TrainingConfig) -> ClippedAdam:
     """Style mapping at lr x lr_style_factor, everything else at lr."""

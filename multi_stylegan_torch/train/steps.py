@@ -10,6 +10,9 @@ steps.py:426-514).  Port decisions:
 * every random draw comes from the provider passed in (train/draws.py);
 * the wrong-order side batch is concatenated only when the flag is on, which
   is exactly the JAX step's masked "concat-equivalent" losses;
+* with a trap-weight map and the ``trap_weight`` flag on, the D step's
+  real and fake pixel losses and the G step's top-k pixel loss weight each
+  pixel by the map (JAX steps.py:139-146, 176-188, 289-298);
 * R1 and path length run in f32 because the whole trainer does: the port
   trains f32 models only (bf16 training is not ported yet);
 * ``r1_update`` takes R1's penalty from one D forward; the JAX ``r1_step``
@@ -19,7 +22,7 @@ steps.py:426-514).  Port decisions:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,22 +43,29 @@ Metrics = Dict[str, torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class StepFlags:
     """Per-step control the host computes from the epoch schedule
-    (model_wrapper.py:272, 331-332).  ``do_ema`` is off on path-length
-    steps, whose update applies the EMA after its own parameter change."""
+    (model_wrapper.py:272, 290-291, 331-332).  ``do_ema`` is off on
+    path-length steps, whose update applies the EMA after its own parameter
+    change."""
 
     wrong_order: bool = False
+    trap_weight: bool = False
     do_cut_mix: bool = False
     do_ema: bool = True
 
 
 class TrainStep:
-    """The sub-steps of one iteration for a generator / discriminator pair."""
+    """The sub-steps of one iteration for a generator / discriminator pair;
+    ``trap_weights_map`` is an optional [H, W] pixel-weight map
+    (data/trap_weights.py)."""
 
     def __init__(self, cfg: TrainingConfig, *, top_k_start_iteration: int = 0,
-                 top_k_final_iteration: int = 1):
+                 top_k_final_iteration: int = 1,
+                 trap_weights_map: Optional[torch.Tensor] = None):
         self.cfg = cfg
         self.top_k_start = top_k_start_iteration
         self.top_k_final = top_k_final_iteration
+        self.trap_weights_map = (None if trap_weights_map is None
+                                 else torch.as_tensor(trap_weights_map, dtype=torch.float32))
 
     # ------------------------------------------------------------- helpers
 
@@ -84,13 +94,20 @@ class TrainStep:
                                          p_step=cfg.ada_p_step, r_update=cfg.ada_r_update,
                                          p_max=cfg.ada_p_max)
 
+    def _pixel_weight(self, trap: bool, like: torch.Tensor) -> Optional[torch.Tensor]:
+        """The trap map on ``like``'s device when the flag is on, else None."""
+        if not trap or self.trap_weights_map is None:
+            return None
+        return self.trap_weights_map.to(like.device)
+
     @staticmethod
     def _grads(loss: torch.Tensor, opt) -> List[torch.Tensor]:
         return list(torch.autograd.grad(loss, opt.params, allow_unused=True))
 
     # -------------------------------------------------------------- D step
 
-    def d_losses(self, state: TrainState, real: torch.Tensor, wrong_order: bool, draws):
+    def d_losses(self, state: TrainState, real: torch.Tensor, wrong_order: bool, draws,
+                 trap: bool = False):
         """The D step's four losses (differentiable in D's params), the fakes,
         the real / fake pixel predictions and the r heuristic's inputs."""
         b = real.shape[0]
@@ -105,16 +122,19 @@ class TrainStep:
             pw_s, pw_p = self._d_ada(state, real[:n_wrong].index_select(2, perm), draws)
             all_s, all_p = torch.cat([pf_s, pw_s]), torch.cat([pf_p, pw_p])
         l_real, l_fake = losses.non_saturating_discriminator_loss(pr_s, all_s)
-        l_real_px, l_fake_px = losses.non_saturating_discriminator_loss(pr_p, all_p)
+        l_real_px, l_fake_px = losses.non_saturating_discriminator_loss(
+            pr_p, all_p, self._pixel_weight(trap, real))
         losses_ = dict(loss_discriminator_real=l_real, loss_discriminator_fake=l_fake,
                        loss_discriminator_real_pixel_wise=l_real_px,
                        loss_discriminator_fake_pixel_wise=l_fake_px)
         return losses_, fakes, pr_p.detach(), pf_p.detach(), calc_r(all_s.detach(), all_p.detach())
 
-    def d_step(self, state: TrainState, real: torch.Tensor, wrong_order: bool, draws):
+    def d_step(self, state: TrainState, real: torch.Tensor, wrong_order: bool, draws,
+               trap: bool = False):
         """Non-saturating losses on both heads over ADA-augmented reals and
-        fakes (+ time-permuted reals when ``wrong_order``); one D update."""
-        losses_, fakes, real_pp, fake_pp, r = self.d_losses(state, real, wrong_order, draws)
+        fakes (+ time-permuted reals when ``wrong_order``), the pixel losses
+        trap-weighted when ``trap``; one D update."""
+        losses_, fakes, real_pp, fake_pp, r = self.d_losses(state, real, wrong_order, draws, trap)
         state.d_opt.step(self._grads(sum(losses_.values()), state.d_opt))
         self._update_ada(state, r)
         return fakes, real_pp, fake_pp, {k: v.detach() for k, v in losses_.items()}
@@ -149,9 +169,9 @@ class TrainStep:
 
     # -------------------------------------------------------------- G step
 
-    def g_step(self, state: TrainState, b: int, draws) -> Metrics:
+    def g_step(self, state: TrainState, b: int, draws, trap: bool = False) -> Metrics:
         """Non-saturating G loss on both heads through ADA, on the top-k
-        fakes by D's scalar score."""
+        fakes by D's scalar score, the pixel loss trap-weighted when ``trap``."""
         if self.top_k_final > self.top_k_start:
             v = losses.top_k_v(state.step, self.top_k_start, self.top_k_final)
         else:
@@ -161,7 +181,9 @@ class TrainStep:
         mask, k = losses.top_k_mask(pf_s, v)
         loss_scalar = (F.softplus(-pf_s) * mask).sum() / k
         per_elem = pf_p.numel() // b
-        loss_px = (F.softplus(-pf_p) * mask.reshape(b, 1, 1, 1, 1)).sum() / (k * per_elem)
+        raw_px = losses.apply_pixel_weight(F.softplus(-pf_p) * mask.reshape(b, 1, 1, 1, 1),
+                                           self._pixel_weight(trap, pf_p))
+        loss_px = raw_px.sum() / (k * per_elem)
         state.g_opt.step(self._grads(loss_scalar + loss_px, state.g_opt))
         self._update_ada(state, calc_r(pf_s.detach(), pf_p.detach()))
         return dict(loss_generator=loss_scalar.detach(),
@@ -200,12 +222,13 @@ class TrainStep:
         """D step, optional cut-mix step, G step, then the EMA unless the
         host runs the path-length update this step."""
         state.step += 1
-        fakes, real_pp, fake_pp, metrics = self.d_step(state, real, flags.wrong_order, draws)
+        fakes, real_pp, fake_pp, metrics = self.d_step(state, real, flags.wrong_order, draws,
+                                                       flags.trap_weight)
         zero = torch.zeros((), device=real.device)
         l_aug = l_reg = zero
         if flags.do_cut_mix:
             l_aug, l_reg = self.cut_mix_step(state, real, fakes, real_pp, fake_pp, draws)
-        metrics.update(self.g_step(state, real.shape[0], draws))
+        metrics.update(self.g_step(state, real.shape[0], draws, flags.trap_weight))
         if flags.do_ema:
             ema_update(state.g_ema, state.generator, self.cfg.ema_decay)
         metrics.update(loss_cut_mix_augmentation=l_aug, loss_cut_mix_regularization=l_reg,

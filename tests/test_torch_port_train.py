@@ -77,7 +77,8 @@ def _jax_setup():
     biases, noise weights and NonLocal gammas carry signal) and ADA at p=0."""
     g, d = JaxGenerator(jax_tiny_g()), JaxDiscriminator(jax_tiny_d())
     cfg = JaxTrainingConfig(**CFG_KW)
-    state = create_train_state(jax.random.key(0), g, d, cfg)
+    # jitted: the eager init dispatches op by op and takes ~3x as long
+    state = jax.jit(lambda key: create_train_state(key, g, d, cfg))(jax.random.key(0))
     rng = np.random.default_rng(0)
 
     def perturb(tree):
@@ -147,11 +148,16 @@ def _wplus_draws(k_w, batch, p_mixed=0.9, dim=32, n_latents=8):
     return ((_t(z1), _t(z2), torch.tensor(bool(use_mix))), torch.tensor(int(inject)))
 
 
-def _noise_draws(k_n, batch):
-    shapes = Generator(tiny_generator_config(), device="meta")._noise_shapes()
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _jax_noise(k_n, batch, shapes):
+    # one program for all layers: eager draws compile one per shape
     keys = jax.random.split(k_n, len(shapes))
-    return [_t(np.asarray(jax.random.normal(k, (batch, h, w, 1))).transpose(0, 3, 1, 2))
-            for k, (h, w) in zip(keys, shapes)]
+    return [jax.random.normal(k, (batch, h, w, 1)) for k, (h, w) in zip(keys, shapes)]
+
+
+def _noise_draws(k_n, batch):
+    shapes = tuple(Generator(tiny_generator_config(), device="meta")._noise_shapes())
+    return [_t(np.asarray(n).transpose(0, 3, 1, 2)) for n in _jax_noise(k_n, batch, shapes)]
 
 
 def _fake_draws(k_fake, batch):
@@ -458,10 +464,11 @@ def test_grad_of_grad_through_checkpointed_blocks_equals_plain():
 # ------------------------------------------------------------- (i) the CLI
 
 
-def test_cli_train_tiny_cpu():
+def test_cli_train_tiny_cpu(tmp_path):
     """16 steps of batch 4 (64 fixture sequences): step 16 runs R1 and path length."""
     run = train_cli.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
-                          "--batch_size", "4", "--seed", "3"])
+                          "--batch_size", "4", "--seed", "3",
+                          "--experiment_path", str(tmp_path / "exp")])
     assert run["steps"] == 16 and run["finite"]
     last = run["history"][-1]
     assert last["loss_discriminator_regularization"] > 0 and last["path_length"] > 0
@@ -470,9 +477,10 @@ def test_cli_train_tiny_cpu():
     assert state.step == 16 and math.isfinite(float(state.mean_path_length))
 
 
-def test_cli_train_needs_synthetic_and_cuda_or_cpu(monkeypatch):
-    with pytest.raises(ValueError, match="synthetic"):
-        train_cli.main(["--tiny", "--device", "cpu"])
+def test_cli_train_needs_synthetic_and_cuda_or_cpu(monkeypatch, tmp_path):
+    """Without --synthetic the CLI reads --path_to_data, which must exist."""
+    with pytest.raises(FileNotFoundError, match="synthetic"):
+        train_cli.main(["--tiny", "--device", "cpu", "--path_to_data", str(tmp_path / "none")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_cli.main(["--tiny", "--synthetic"])

@@ -27,12 +27,13 @@ ALIGNED = 1 << 40  # a 16-byte aligned device address
 DTYPES = [torch.float32, torch.bfloat16]
 
 
-def forward_sites(gcfg, dcfg, batch):
-    """(shape, up, down, normalized pad) of every upfirdn2d forward call of
-    G and D on a batch, from the configs: G's post-upsample blurs and skip
-    upsamples per stage, D's downscale blurs (after a k3 s2 p0 conv, so on
-    odd maps) and decoder upsamples."""
-    blur4 = lambda p: (p[0], p[1], p[0], p[1])  # noqa: E731
+def blur4(p):
+    return (p[0], p[1], p[0], p[1])
+
+
+def generator_sites(gcfg, batch):
+    """(shape, up, down, normalized pad) of every upfirdn2d call of a G
+    forward on a batch: the post-upsample blurs and skip upsamples per stage."""
     h0, w0 = gcfg.starting_resolution
     ch = gcfg.stage_channels
     sites = set()
@@ -41,6 +42,14 @@ def forward_sites(gcfg, dcfg, batch):
         sites.add(((batch, h, w, ch[i + 1]), 1, 1, blur4(blur_padding(4, 2, 2))))
         sites.add(((batch, h // 2, w // 2, gcfg.sequence_length), 2, 1,
                    blur4(upsample_padding(4, 2))))
+    return sites
+
+
+def forward_sites(gcfg, dcfg, batch):
+    """(shape, up, down, normalized pad) of every upfirdn2d forward call of
+    G and D on a batch, from the configs: G's sites, D's downscale blurs
+    (after a k3 s2 p0 conv, so on odd maps) and decoder upsamples."""
+    sites = generator_sites(gcfg, batch)
     h, w = gcfg.resolution
     enc, dec = dcfg.encoder_channels, dcfg.decoder_channels
     for i, (_, c) in enumerate(enc[:-1]):
@@ -99,6 +108,19 @@ def test_flagship_sites_take_a_tiled_variant(batch, dtype):
             got = plan(shape, dtype, up, down, pad)
             want = "general" if shape[-1] == 3 else f"up{up}-down{down}"
             assert got == want, (shape, up, down, pad)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("batch", [15, 24])
+def test_sampling_sites_take_a_tiled_variant(batch, dtype):
+    """The trainer samples without gradients: the sample grids at batch 15
+    (15 fixed latent pairs) and validation at batch 24.  Every G forward
+    launch there takes the tiled form, except the C = 3 skip upsamples."""
+    sites = generator_sites(GeneratorConfig(), batch)
+    assert len(sites) == 2 * 6
+    for shape, up, down, pad in sites:
+        want = "general" if shape[-1] == 3 else f"up{up}-down{down}"
+        assert plan(shape, dtype, up, down, pad) == want, (shape, up, down, pad)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
