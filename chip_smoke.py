@@ -32,46 +32,77 @@ beside it.  Phases, each raising on failure:
               structure.  A census of the iteration's launches by call site
               feeds phase 5.  The same iteration runs once more under
               torch.profiler for its top device ops.
-5. grads    - at every K1 / K3 call site the iteration launched (batch 24,
+   4b. bf16_iteration - the same iteration with both models in bf16 (after
+              one warm-up main step): exact launches, the D, cut-mix and G
+              steps' K1 / K3 sites in bf16 and R1's and path length's in
+              f32; its trained state saved for phase 8.  bf16_parity: its
+              D-step gradient at batch 1 against the CPU's bf16 plain path,
+              max |card - cpu bf16| <= max(4 max |cpu bf16 - cpu f32|,
+              2^-8 peak).
+5. grads    - at every K1 / K3 call site the iterations launched (batch 24,
               12 and 6): K1 and K3 forward, K2 (dx and db) and K4 (backward
               and double backward) against the plain versions' autograd on
               the card, in f32 and bf16; kernel, plain and library times and
-              the bound, in f32.  Every K3/K4 site but the C = 3 skip
-              upsamples must take a tiled upfirdn2d variant.
+              the bound in f32, kernel times and the bound in bf16.  Every
+              K3/K4 site but the C = 3 skip upsamples must take a tiled
+              upfirdn2d variant, in both dtypes.
 6. parity   - GPU vs CPU (plain versions, TF32 off): a D-step gradient, the
               R1 penalty's parameter gradient and the path-length gradient
               at full width, batch 2, same weights and draws.
+   6b. sequential_fft - one main step with ADA's sequential warps at p =
+              0.5 and the fft discriminator (f32): finite, moved, exact
+              launches; its D-step gradient at batch 2 against the CPU's.
+   6c. pl_chunked - the Trainer's path-length ladder (train/robust.py) at
+              batch 24: its grads stage unchunked, and demoted to 4 chunks
+              by out-of-memory errors injected at 1 and 2 chunks, from one
+              state and one set of draws: equal within 1e-4 of the peak;
+              times and peak memory of each.  Then the ladder's whole update
+              at 4 chunks, as the Trainer calls it: its metrics, moved G
+              parameters and 4 times the unchunked update's launches.
 7. train_run - the training CLI's whole run at the flagship config: a TLFM
               tree of 16-bit TIFFs written here (48 sequences), trap weights,
-              4 epochs (8 steps; trap weights from epoch 1, wrong order from
-              epoch 3), the sample grids and a checkpoint every epoch, FID /
-              FVD / IS every other epoch (48 samples, random-weight nets
-              read from files through
-              ``MSG_TPU_INCEPTION_PT`` / ``MSG_TPU_I3D_PT``) every epoch, a
+              3 epochs (6 steps; trap weights from epoch 1, wrong order in
+              epoch 2, its start moved from 0.75 to 0.5 of the run), the sample
+              grids and a checkpoint every epoch, FID / FVD / IS once at the
+              end (48 samples, random-weight nets read from files through
+              ``MSG_TPU_INCEPTION_PT`` / ``MSG_TPU_I3D_PT``), a
               torch.profiler trace of steps 2-5; then a resume for one more
-              epoch (steps 9-10) from the checkpoint.  Fails on a non-finite
+              epoch (steps 7-8) from the checkpoint.  Fails on a non-finite
               loss or score, a failed save, a missing PNG / metric file, a
               restored state not bitwise the saved one, a batch-15 grid site
               on upfirdn2d's general form (C = 3 aside), or two grid samples
               off the CPU's by more than ``SAMPLE_TOL``.
+8. reference - phase 4b's checkpoint through ``cli.export`` into the
+              reference's 6-key ``.pt`` and back through ``cli.convert``,
+              bitwise the source for all the format carries; the training
+              CLI from the ``.pt`` (its Adam counts go on) and the sampling
+              CLI on the models directory it writes.
+9. interpolate - ``cli.interpolate`` from that ``.pt``: 96 frames at batch
+              32, the GIF's frame count and size, finite frames, the
+              launches of three forwards, the upfirdn2d variant of each
+              batch-32 site, and two rows of the CLI's own first batch
+              against the CPU's images of the latents the CLI fed them.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
 of upfirdn2d the launch took), one ``edge`` line per upfirdn2d edge case,
 one ``train_run`` line (loader, step, grid, checkpoint and metric seconds,
-checkpoint MB, peak memory, the top 15 device ops), the card's name and
-power limit,
+checkpoint MB, peak memory, the top 15 device ops), one line for each phase
+from 4b on, a ``seconds`` line, the card's name and power limit,
 one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
-In the kernels line ``launches`` sums the four main-path runs (sampling
-CLI, training CLI, regularised iteration, training run with its resume),
-each counted from zero, and
-``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per regularised
-training iteration at batch 24: each training call site's time per launch
-times its launches in that iteration, summed.
+In the kernels line ``launches`` sums the main-path runs (sampling CLI,
+training CLI, the f32 and bf16 iterations, the sequential + fft main step,
+the path-length ladder's update, the training run with its resume, the
+training and sampling CLIs of phase 8, the interpolation CLI), each counted
+from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
+per f32 regularised training iteration at batch 24: each training call
+site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
+same for the bf16 iteration.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -113,8 +144,9 @@ def fail(msg: str) -> None:
     sys.exit(2)
 
 
-def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
-    """Mean device time of ``fn`` in ms over a run of launches (CUDA events)."""
+def cuda_ms(fn, min_total_ms: float = 30.0, min_iters: int = 3) -> float:
+    """Mean device time of ``fn`` in ms over a run of launches (CUDA events):
+    at least ``min_iters`` after a warm-up and a first timed call."""
     import torch
 
     fn()
@@ -125,7 +157,7 @@ def cuda_ms(fn, min_total_ms: float = 30.0) -> float:
     end.record()
     end.synchronize()
     once = max(start.elapsed_time(end), 1e-3)
-    iters = int(min(50, max(3, min_total_ms / once)))
+    iters = int(min(50, max(min_iters, min_total_ms / once)))
     start.record()
     for _ in range(iters):
         fn()
@@ -504,11 +536,13 @@ DEVICE = "cuda"
 CONFIG_ARGS = []  # training CLI flags that pick the config (the flagship: none)
 
 
-def train_configs():
-    """(generator, discriminator) configs of the training phases: the flagship."""
+def train_configs(dtype: str = "float32", fft: bool = False):
+    """(generator, discriminator) configs of the training phases: the
+    flagship, in ``dtype``, the discriminator with its fft branch if asked."""
     from multi_stylegan_torch.models.config import DiscriminatorConfig, GeneratorConfig
 
-    return GeneratorConfig(), DiscriminatorConfig(no_rfp=True)
+    return (GeneratorConfig(compute_dtype=dtype),
+            DiscriminatorConfig(no_rfp=True, compute_dtype=dtype, fft=fft))
 
 
 def train_cli_args(seed: int, experiment: str):
@@ -594,18 +628,23 @@ def expected_launches(gcfg, dcfg, sub_step: str, wrong_order: bool = False) -> d
       blurs twice (the K4 double backward and the forward's backward), none
       at the skip upsamples (the image is linear in them, so w+'s gradient
       does not depend on them); two block recomputes.
+
+    R1 and path length run the f32 variants, which always rematerialize
+    (train/steps.py ``F32``), whatever the configs say.
     """
     s = model_sites(gcfg, dcfg)
     dk1, dk3, rd = s["d_k1"], s["d_k3"], s["d_remat_k1"]
     gk1, gk3, rg1, rg3 = s["g_k1"], s["g_k3"], s["g_remat_k1"], s["g_remat_k3"]
+    s32 = model_sites(dataclasses.replace(gcfg, remat=True), dataclasses.replace(dcfg, remat=True))
+    rd32, rg1_32, rg3_32 = s32["d_remat_k1"], s32["g_remat_k1"], s32["g_remat_k3"]
     nd = 3 if wrong_order else 2
     table = {
         "d_step": dict(K1=gk1 + nd * (dk1 + rd), K2=nd * dk1, K3=gk3 + nd * dk3, K4=nd * dk3),
         "cut_mix_step": dict(K1=2 * (dk1 + rd), K2=2 * (dk1 - 1), K3=2 * dk3, K4=2 * dk3),
         "g_step": dict(K1=gk1 + rg1 + dk1 + rd, K2=gk1 + dk1, K3=gk3 + rg3 + dk3, K4=gk3 + dk3),
-        "r1_update": dict(K1=dk1 + 2 * rd, K2=3 * dk1, K3=dk3, K4=3 * dk3),
-        "path_length_update": dict(K1=gk1 + 2 * rg1, K2=2 * s["g_styled"] + gk1,
-                                   K3=gk3 + 2 * rg3, K4=gk3 + 2 * s["g_blur"]),
+        "r1_update": dict(K1=dk1 + 2 * rd32, K2=3 * dk1, K3=dk3, K4=3 * dk3),
+        "path_length_update": dict(K1=gk1 + 2 * rg1_32, K2=2 * s["g_styled"] + gk1,
+                                   K3=gk3 + 2 * rg3_32, K4=gk3 + 2 * s["g_blur"]),
     }
     return table[sub_step]
 
@@ -726,16 +765,20 @@ def phase_train_cli(seed: int):
     return counts, row
 
 
-def phase_train_iteration(seed: int):
-    """One regularised iteration at the flagship config, batch 24."""
+def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
+    """One regularised iteration at the flagship config, batch 24, in
+    ``dtype``; R1 and path length run their f32 variants whatever it is.
+    With ``save_to`` the trained state is written there as the trainer's
+    checkpoint (for phase ``reference``)."""
     import torch
 
+    from multi_stylegan_torch.io.checkpoint import CheckpointManager, train_state_dict
     from multi_stylegan_torch.models.config import TrainingConfig
     from multi_stylegan_torch.train.draws import TorchDraws
     from multi_stylegan_torch.train.state import create_train_state
     from multi_stylegan_torch.train.steps import StepFlags, TrainStep
 
-    (gcfg, dcfg), cfg = train_configs(), TrainingConfig()
+    (gcfg, dcfg), cfg = train_configs(dtype), TrainingConfig()
     gen = random_generator(gcfg, seed + 10).train().to(DEVICE)
     disc = random_discriminator(dcfg, seed + 11).to(DEVICE)
     state = create_train_state(gen, disc, cfg)
@@ -746,24 +789,32 @@ def phase_train_iteration(seed: int):
               list(gen.named_parameters(prefix="g")) + list(disc.named_parameters(prefix="d"))}
     ema_before = [p.clone() for p in state.g_ema.parameters()]
 
-    timings, per_sub = {}, {}
+    timings, per_sub, dtypes = {}, {}, {}
 
     def timed(name, fn):
         def run(*a, **kw):
             sync()
             c0, t0 = read_counts(), time.perf_counter()
-            out = fn(*a, **kw)
+            with Census() as sub:
+                out = fn(*a, **kw)
             c1 = read_counts()  # synchronizes
             timings[name] = (time.perf_counter() - t0) * 1e3
             per_sub[name] = {k: c1[k] - c0[k] for k in c1}
+            # the dtypes the sub-step's K1 / K3 sites ran in (4-d: the spatial ones)
+            dtypes[name] = sorted({k[2] for k in sub.sites if len(k[1]) == 4})
             return out
         return run
 
     for name in ("d_step", "cut_mix_step", "g_step"):
         setattr(ts, name, timed(name, getattr(ts, name)))
+    flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
+    if dtype != "float32":
+        # the first bf16 step compiles Triton's bf16 K1 / K2 and lets cuDNN
+        # pick its bf16 algorithms (the f32 ones were warmed by phase 4's CLI)
+        ts.main_step(state, real, flags, draws)
+        sync()
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
     zero_counts()
     with Census() as census:
         metrics = timed("main_step", ts.main_step)(state, real, flags, draws)
@@ -776,31 +827,42 @@ def phase_train_iteration(seed: int):
     host = {k: float(v) for k, v in metrics.items()}
     bad = [k for k, v in host.items() if not math.isfinite(v)]
     if bad or not all_finite(gen) or not all_finite(disc) or not all_finite(state.g_ema):
-        raise AssertionError(f"regularised iteration: non-finite {bad or 'parameters'}")
+        raise AssertionError(f"regularised iteration [{dtype}]: non-finite {bad or 'parameters'}")
     after = dict(list(gen.named_parameters(prefix="g")) + list(disc.named_parameters(prefix="d")))
     unmoved = [n for n, p in after.items() if torch.equal(p.detach(), before[n])]
     # a G parameter the path-length step leaves alone may sit still only if
     # the G step moved it; every D parameter moves in the D steps
     if unmoved:
-        raise AssertionError(f"parameters did not move: {unmoved[:8]}")
+        raise AssertionError(f"[{dtype}] parameters did not move: {unmoved[:8]}")
     if all(torch.equal(a, b) for a, b in zip(ema_before, state.g_ema.parameters())):
-        raise AssertionError("the EMA did not move")
+        raise AssertionError(f"[{dtype}] the EMA did not move")
     for name in ("d_step", "cut_mix_step", "g_step", "r1_update", "path_length_update"):
         want = expected_launches(gcfg, dcfg, name, wrong_order=(name == "d_step"))
         if per_sub[name] != want:
-            raise AssertionError(f"{name}: launches {per_sub[name]}, expected {want}")
+            raise AssertionError(f"[{dtype}] {name}: launches {per_sub[name]}, expected {want}")
+    # the D, cut-mix and G steps run in the configs' dtype, R1 and path length in f32
+    step_dtype = str(getattr(torch, dtype))
+    for name in ("d_step", "cut_mix_step", "g_step", "r1_update", "path_length_update"):
+        want = ["torch.float32"] if name in ("r1_update", "path_length_update") else [step_dtype]
+        if dtypes[name] != want:
+            raise AssertionError(f"[{dtype}] {name} ran its K1 / K3 sites in {dtypes[name]}")
     # the same iteration once more under torch.profiler (the trainer's
-    # profiling utility), apart from the timed one above
+    # profiling utility), apart from the timed one above; its sub-steps'
+    # times are kept apart from the first run's
     from multi_stylegan_torch.utils.profiling import trace
 
+    first_ms, timings = timings, {}
     with tempfile.TemporaryDirectory() as tmp, trace(tmp) as tr:
         ts.main_step(state, real, flags, draws)
         ts.r1_update(state, real)
         ts.path_length_update(state, draws)
         sync()
-    row = {"ms": timings, "launches": counts, "launches_by_sub_step": per_sub,
-           "peak_memory_gib": peak, "metrics": host, "ada_p": float(state.ada.p),
-           "top_device_ops": tr.top_device_ops(15)}
+    if save_to:
+        CheckpointManager(save_to).save(state.step, {"train_state": train_state_dict(state)})
+    row = {"dtype": dtype, "ms": first_ms, "ms_under_profiler": timings,
+           "launches": counts, "launches_by_sub_step": per_sub,
+           "site_dtypes_by_sub_step": dtypes, "peak_memory_gib": peak, "metrics": host,
+           "ada_p": float(state.ada.p), "top_device_ops": tr.top_device_ops(15)}
     print("slice train", json.dumps(row), flush=True)
     del state, gen, disc
     empty_cache()
@@ -823,9 +885,17 @@ def library_conv_backward(x_shape, taps, up, down, pad, g_nhwc):
         g, t, wt, None, [down, down], [0, 0], [1, 1], False, [0, 0], c, [True, False, False])
 
 
-def phase_grad_sites(seed: int, census) -> dict:
-    """Every K1 and K3 call site of the regularised iteration, with its K2 /
-    K4 gradients: correctness in f32 and bf16, times in f32."""
+def site_key(key):
+    """A census key without its dtype: (kind, shape[, up, down, pad, taps])."""
+    return key[:2] + key[3:]
+
+
+def phase_grad_sites(seed: int, census, census_bf16) -> dict:
+    """Every K1 and K3 call site of the regularised iterations, with its K2 /
+    K4 gradients: correctness in f32 and bf16, times in f32 (kernel, plain,
+    library) and bf16 (kernel).  ``census`` is the f32 iteration's launches
+    by site, ``census_bf16`` the bf16 iteration's (its R1 and path length
+    in f32)."""
     import torch
 
     from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
@@ -834,18 +904,34 @@ def phase_grad_sites(seed: int, census) -> dict:
     g = torch.Generator(device=dev).manual_seed(seed + 20)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     rows = {"K1": [], "K2": [], "K3": [], "K4": []}
+    by_dtype = {name: {} for name in ("torch.float32", "torch.bfloat16")}
+    for key, n in census_bf16.items():
+        by_dtype[key[2]][site_key(key)] = n
+    f32_sites = {site_key(k): n for k, n in census.items()}
+
+    def launches(key):
+        """(f32 iteration, bf16 iteration: its bf16 and its f32) launches."""
+        k = site_key(key)
+        return {"launches_per_iteration": f32_sites.get(k, 0),
+                "launches_bf16_iteration_bf16": by_dtype["torch.bfloat16"].get(k, 0),
+                "launches_bf16_iteration_f32": by_dtype["torch.float32"].get(k, 0)}
 
     def emit(kernel, row):
         rows[kernel].append(row)
         print("site", json.dumps({"kernel": kernel, **row}), flush=True)
 
-    for key in sorted(k for k in census if k[0] == "K1"):
+    def sites(kind):
+        keys = {site_key(k): k for k in list(census) + list(census_bf16) if k[0] == kind}
+        return [keys[k] for k in sorted(keys)]
+
+    for key in sites("K1"):
         shape = key[1]
         c, m = shape[-1], math.prod(shape[:-1])
-        fwd = {"shape": list(shape), "launches_per_iteration": census[key]}
-        bwd = {"shape": list(shape), "launches_per_iteration": census.get(("K2",) + key[1:], 0)}
+        fwd = {"shape": list(shape), **launches(key)}
+        bwd = {"shape": list(shape), **launches(("K2",) + key[1:])}
         bias = torch.randn(c, generator=g, device=dev)
         for name, dt in dtypes.items():
+            size = torch.tensor([], dtype=dt).element_size()
             x = torch.randn(shape, generator=g, device=dev).to(dt)
             gy = torch.randn(shape, generator=g, device=dev).to(dt)
             fwd[f"max_abs_err_{name}"] = check(
@@ -860,18 +946,28 @@ def phase_grad_sites(seed: int, census) -> dict:
                                              check(f"K2 db {shape}", db, rdb, name))
             if name == "float32":
                 fwd["ms"] = cuda_ms(lambda: fused_act.fused_leaky_relu(x, bias, 0.2, 1.0))
-                fwd["plain_ms"] = cuda_ms(lambda: fused_act.fused_leaky_relu_ref(x, bias, 0.2, 1.0))
+                fwd["plain_ms"] = cuda_ms(
+                    lambda: fused_act.fused_leaky_relu_ref(x, bias, 0.2, 1.0), min_iters=1)
                 fwd["library_ms"] = None
-                fwd["bound_ms"], fwd["bound_by"] = bound_ms(2 * m * c * 4 + c * 4, 4 * m * c)
                 bwd["ms"] = cuda_ms(lambda: fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0))
-                bwd["plain_ms"] = cuda_ms(lambda: fused_act.fused_leaky_relu_grad_ref(gy, out, 0.2, 1.0))
+                bwd["plain_ms"] = cuda_ms(
+                    lambda: fused_act.fused_leaky_relu_grad_ref(gy, out, 0.2, 1.0), min_iters=1)
                 bwd["library_ms"] = None
-                bwd["bound_ms"], bwd["bound_by"] = bound_ms(3 * m * c * 4 + c * 4, 4 * m * c)
+                sfx = ""
+            else:
+                fwd["ms_bf16"] = cuda_ms(lambda: fused_act.fused_leaky_relu(x, bias, 0.2, 1.0))
+                bwd["ms_bf16"] = cuda_ms(
+                    lambda: fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0))
+                sfx = "_bf16"
+            fwd["bound_ms" + sfx], fwd["bound_by" + sfx] = bound_ms(
+                2 * m * c * size + c * 4, 4 * m * c)
+            bwd["bound_ms" + sfx], bwd["bound_by" + sfx] = bound_ms(
+                3 * m * c * size + c * 4, 4 * m * c)
             del x, gy, out, dx, db, rdx, rdb
         emit("K1", fwd)
         emit("K2", bwd)
 
-    for key in sorted(k for k in census if k[0] == "K3"):
+    for key in sites("K3"):
         _, shape, _, up, down, pad, ksize = key
         b, h, w, c = shape
         taps = torch.randn(ksize, generator=g, device=dev)
@@ -881,12 +977,11 @@ def phase_grad_sites(seed: int, census) -> dict:
         gpad = up_mod._adjoint_pads(ksize, up, down, pad, (h, w), (ho, wo))
         out_shape = (b, ho, wo, c)
         common = {"shape": list(shape), "up": up, "down": down, "pad": list(pad)}
-        fwd = dict(common, launches_per_iteration=census[key])
-        bwd = dict(common, part="backward", launches_per_iteration=census.get(
-            ("K4", out_shape, key[2], down, up, gpad, ksize), 0))
-        dbl = dict(common, part="double backward", launches_per_iteration=census.get(
-            ("K4", shape, key[2], up, down, pad, ksize), 0))
+        fwd = dict(common, **launches(key))
+        bwd = dict(common, part="backward", **launches(("K4", out_shape, key[2], down, up, gpad, ksize)))
+        dbl = dict(common, part="double backward", **launches(("K4", shape, key[2], up, down, pad, ksize)))
         for name, dt in dtypes.items():
+            size = torch.tensor([], dtype=dt).element_size()
             x = torch.randn(shape, generator=g, device=dev).to(dt)
             gy = torch.randn(out_shape, generator=g, device=dev).to(dt)
             gg = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -902,46 +997,56 @@ def phase_grad_sites(seed: int, census) -> dict:
             ggy = up_mod.UpFirDn2d.apply(gg, taps, up, down, pad, True)
             (rggy,) = torch.autograd.grad(rgx, gr, gg)
             dbl[f"max_abs_err_{name}"] = check(f"K4 double backward {key}", ggy, rggy, name)
-            if name == "float32":
-                flip = taps.flip(0, 1).contiguous()
-                gpad_xy = (gpad[2], gpad[3], gpad[0], gpad[1])
-                used_f = (upfirdn_taps_used(h, ho, up, down, pad[0], ksize[0])
-                          * upfirdn_taps_used(w, wo, up, down, pad[2], ksize[1]))
-                used_b = (upfirdn_taps_used(ho, h, down, up, gpad[0], ksize[0])
-                          * upfirdn_taps_used(wo, w, down, up, gpad[2], ksize[1]))
-                sym = pad[0] == pad[2] and pad[1] == pad[3]
-                lib_f = library_upfirdn(x, taps, up, (pad[0], pad[1])) if sym else None
-                for row, fn, plain, lib, used, n_in, n_out in (
-                        (fwd, lambda: up_mod.upfirdn2d(x, taps, up, down, pad_xy),
-                         lambda: up_mod.upfirdn2d_ref(x, taps, up, down, pad_xy),
-                         lib_f, used_f, x.numel(), y.numel()),
-                        (bwd, lambda: up_mod.UpFirDn2dBackward.apply(
-                            gy, taps, up, down, pad, (h, w), (ho, wo)),
-                         lambda: up_mod.upfirdn2d_ref(gy, flip, down, up, gpad_xy),
-                         library_conv_backward(shape, taps, up, down, pad, gy),
-                         used_b, gy.numel(), x.numel()),
-                        (dbl, lambda: up_mod.UpFirDn2d.apply(gg, taps, up, down, pad, True),
-                         lambda: up_mod.upfirdn2d_ref(gg, taps, up, down, pad_xy),
-                         library_upfirdn(gg, taps, up, (pad[0], pad[1])) if sym else None,
-                         used_f, x.numel(), y.numel())):
+            flip = taps.flip(0, 1).contiguous()
+            gpad_xy = (gpad[2], gpad[3], gpad[0], gpad[1])
+            used_f = (upfirdn_taps_used(h, ho, up, down, pad[0], ksize[0])
+                      * upfirdn_taps_used(w, wo, up, down, pad[2], ksize[1]))
+            used_b = (upfirdn_taps_used(ho, h, down, up, gpad[0], ksize[0])
+                      * upfirdn_taps_used(wo, w, down, up, gpad[2], ksize[1]))
+            sym = pad[0] == pad[2] and pad[1] == pad[3]
+            for row, fn, plain, lib, used, n_in, n_out in (
+                    (fwd, lambda: up_mod.upfirdn2d(x, taps, up, down, pad_xy),
+                     lambda: up_mod.upfirdn2d_ref(x, taps, up, down, pad_xy),
+                     lambda: library_upfirdn(x, taps, up, (pad[0], pad[1])) if sym else None,
+                     used_f, x.numel(), y.numel()),
+                    (bwd, lambda: up_mod.UpFirDn2dBackward.apply(
+                        gy, taps, up, down, pad, (h, w), (ho, wo)),
+                     lambda: up_mod.upfirdn2d_ref(gy, flip, down, up, gpad_xy),
+                     lambda: library_conv_backward(shape, taps, up, down, pad, gy),
+                     used_b, gy.numel(), x.numel()),
+                    (dbl, lambda: up_mod.UpFirDn2d.apply(gg, taps, up, down, pad, True),
+                     lambda: up_mod.upfirdn2d_ref(gg, taps, up, down, pad_xy),
+                     lambda: library_upfirdn(gg, taps, up, (pad[0], pad[1])) if sym else None,
+                     used_f, x.numel(), y.numel())):
+                if name == "float32":
                     row["ms"] = cuda_ms(fn)
                     row["variant"] = up_mod.last_variant
-                    row["plain_ms"] = cuda_ms(plain)
-                    row["library_ms"] = cuda_ms(lib) if lib is not None else None
-                    row["bound_ms"], row["bound_by"] = bound_ms(
-                        (n_in + n_out) * 4 + taps.numel() * 4, 2 * used * b * c)
+                    row["plain_ms"] = cuda_ms(plain, min_iters=1)
+                    lib = lib()
+                    row["library_ms"] = cuda_ms(lib, min_iters=1) if lib is not None else None
+                    sfx = ""
+                else:
+                    row["ms_bf16"] = cuda_ms(fn)
+                    row["variant_bf16"] = up_mod.last_variant
+                    sfx = "_bf16"
+                row["bound_ms" + sfx], row["bound_by" + sfx] = bound_ms(
+                    (n_in + n_out) * size + taps.numel() * 4, 2 * used * b * c)
             del x, gy, gg, y, gx, rgx, ggy, rggy, xr, gr
         # every model site but the C = 3 skip upsamples has a tiled form
-        if c != 3 and "general" in (fwd["variant"], bwd["variant"], dbl["variant"]):
-            raise AssertionError(f"K3/K4 site {key} took the general variant")
+        variants = [r[v] for r in (fwd, bwd, dbl) for v in ("variant", "variant_bf16")]
+        if c != 3 and "general" in variants:
+            raise AssertionError(f"K3/K4 site {key} took the general variant: {variants}")
         emit("K3", fwd)
         emit("K4", bwd)
         emit("K4", dbl)
     empty_cache()
-    counted = {k: sum(r["launches_per_iteration"] for r in rows[k]) for k in rows}
-    census_total = {k: sum(v for key, v in census.items() if key[0] == k) for k in rows}
-    if counted != census_total:
-        raise AssertionError(f"site rows cover {counted} launches, the census {census_total}")
+    for label, field, cen in (("f32", ("launches_per_iteration",), census),
+                              ("bf16", ("launches_bf16_iteration_bf16",
+                                        "launches_bf16_iteration_f32"), census_bf16)):
+        counted = {k: sum(r[f] for r in rows[k] for f in field) for k in rows}
+        total = {k: sum(v for key, v in cen.items() if key[0] == k) for k in rows}
+        if counted != total:
+            raise AssertionError(f"{label} site rows cover {counted} launches, the census {total}")
     return rows
 
 
@@ -989,68 +1094,95 @@ class ReplayDraws:
         return self._next
 
 
-def phase_train_parity(seed: int) -> dict:
-    """GPU vs CPU gradients at full width, batch 2, same weights and draws."""
-    import dataclasses
+def d_step_gradients(ts, state, real, draws) -> dict:
+    """D's parameter gradients of the D step's losses (wrong order on)."""
+    import torch
 
+    losses_ = ts.d_losses(state, real, True, draws)[0]
+    return {"d_step": torch.autograd.grad(sum(losses_.values()),
+                                          list(state.discriminator.parameters()))}
+
+
+def cpu_and_card_gradients(seed: int, batch: int, cpu_dtypes, card_dtype: str,
+                           grads=d_step_gradients, fft: bool = False, sequential: bool = False,
+                           p: float = 0.3):
+    """``grads(ts, state, real, draws)`` ({name: gradients}) of one set of
+    random weights and draws on the CPU (plain versions, no remat: remat
+    changes no value, only time) in each of ``cpu_dtypes`` and on the card
+    in ``card_dtype``, ADA at ``p``; returns ({dtype: cpu gradients}, card
+    gradients on the host, host seconds)."""
     import torch
 
     from multi_stylegan_torch.models.config import TrainingConfig
     from multi_stylegan_torch.models.discriminator import Discriminator
     from multi_stylegan_torch.models.generator import Generator
-    from multi_stylegan_torch.train import losses
     from multi_stylegan_torch.train.draws import TorchDraws
     from multi_stylegan_torch.train.state import create_train_state
     from multi_stylegan_torch.train.steps import TrainStep
 
-    gcfg, dcfg = train_configs()
-    cfg = TrainingConfig(batch_size=2)
+    gcfg, dcfg = train_configs(card_dtype, fft=fft)
+    cfg = TrainingConfig(batch_size=batch, ada_sequential_warps=sequential)
     ts = TrainStep(cfg)
-    cpu_g, cpu_d = random_generator(gcfg, seed + 30).train(), random_discriminator(dcfg, seed + 31)
-    # the CPU side recomputes nothing (remat changes no value, only time)
-    plain_g = Generator(dataclasses.replace(gcfg, remat=False))
-    plain_g.load_state_dict(cpu_g.state_dict())
-    plain_d = Discriminator(dataclasses.replace(dcfg, remat=False))
-    plain_d.load_state_dict(cpu_d.state_dict())
-    real = real_batch(2, gcfg.resolution, seed + 32)
-
-    def grads(state, real, draws):
-        d_params, g_params = list(state.discriminator.parameters()), list(state.generator.parameters())
-        out = {}
-        losses_ = ts.d_losses(state, real, True, draws)[0]
-        out["d_step"] = torch.autograd.grad(sum(losses_.values()), d_params)
-        out["r1"] = torch.autograd.grad(losses.r1_penalty(state.discriminator, real), d_params)
-        pen = ts.path_length_loss(state, 2, draws)[0]
-        out["path_length"] = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(
-            g_params, torch.autograd.grad(pen, g_params, allow_unused=True))]
-        return out
-
-    rec = RecordingDraws(TorchDraws(torch.Generator().manual_seed(seed + 33)))
-    cpu_state = create_train_state(plain_g, plain_d, cfg)
-    cpu_state.ada.p = torch.tensor(0.3)
-    t0 = time.perf_counter()
-    ref = grads(cpu_state, real, rec)
+    src_g, src_d = random_generator(gcfg, seed).train(), random_discriminator(dcfg, seed + 1)
+    real = real_batch(batch, gcfg.resolution, seed + 2)
+    rec = RecordingDraws(TorchDraws(torch.Generator().manual_seed(seed + 3)))
+    ref, t0 = {}, time.perf_counter()
+    for dtype in cpu_dtypes:
+        g = Generator(dataclasses.replace(gcfg, compute_dtype=dtype, remat=False))
+        g.load_state_dict(src_g.state_dict())
+        d = Discriminator(dataclasses.replace(dcfg, compute_dtype=dtype, remat=False))
+        d.load_state_dict(src_d.state_dict())
+        state = create_train_state(g, d, cfg)
+        state.ada.p = torch.tensor(p)
+        draws = rec if not ref else ReplayDraws(rec.records, torch.device("cpu"))
+        ref[dtype] = grads(ts, state, real, draws)
     host_s = time.perf_counter() - t0
-    gpu_state = create_train_state(cpu_g.to(DEVICE), cpu_d.to(DEVICE), cfg)
-    gpu_state.ada.p = torch.tensor(0.3, device=DEVICE)
-    got = grads(gpu_state, real.to(DEVICE), ReplayDraws(rec.records, torch.device(DEVICE)))
+    state = create_train_state(src_g.to(DEVICE), src_d.to(DEVICE), cfg)
+    state.ada.p = torch.tensor(p, device=DEVICE)
+    got = grads(ts, state, real.to(DEVICE), ReplayDraws(rec.records, torch.device(DEVICE)))
+    got = {name: [a.detach().cpu() for a in g] for name, g in got.items()}
+    del state
+    empty_cache()
+    return ref, got, host_s
+
+
+def flat_max(tensors) -> float:
+    return max(float(t.detach().float().abs().max()) for t in tensors)
+
+
+def train_parity_gradients(ts, state, real, draws) -> dict:
+    """The D step's, R1's and path length's parameter gradients."""
+    import torch
+
+    from multi_stylegan_torch.train import losses
+
+    d_params, g_params = list(state.discriminator.parameters()), list(state.generator.parameters())
+    out = d_step_gradients(ts, state, real, draws)
+    out["r1"] = torch.autograd.grad(losses.r1_penalty(state.discriminator, real), d_params)
+    pen = ts.path_length_loss(state, real.shape[0], draws)[0]
+    out["path_length"] = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(
+        g_params, torch.autograd.grad(pen, g_params, allow_unused=True))]
+    return out
+
+
+def phase_train_parity(seed: int) -> dict:
+    """GPU vs CPU gradients at full width, batch 2, same weights and draws."""
+    ref, got, host_s = cpu_and_card_gradients(seed + 30, 2, ("float32",), "float32",
+                                              train_parity_gradients)
     row = {"host_seconds": host_s}
-    for name in ref:
-        peak = max(float(r.abs().max()) for r in ref[name])
-        err = max(float((a.cpu() - r).abs().max()) for a, r in zip(got[name], ref[name]))
+    for name, r in ref["float32"].items():
+        peak, err = flat_max(r), flat_max(a - b for a, b in zip(got[name], r))
         row[name] = {"max_abs_err": err, "peak": peak}
         if not (math.isfinite(err) and peak > 0 and err <= GRAD_TOL * peak):
             raise AssertionError(f"GPU vs CPU {name} gradient: max abs err {err}, peak {peak}")
     print("slice train parity", json.dumps(row), flush=True)
-    del gpu_state, got
-    empty_cache()
     return row
 
 
 # --------------------------------------------------------------- train run
 
 
-TRAIN_RUN_EPOCHS = 4
+TRAIN_RUN_EPOCHS = 3
 TRAIN_RUN_SAMPLES = 48  # FID / FVD / IS samples here; the protocol takes 5000
 PROTOCOL_SAMPLES = 5000
 GRID_BATCH = 15  # the fixed validation latents of the sample grids
@@ -1085,9 +1217,13 @@ class MethodTimer:
             setattr(cls, name, orig)
 
 
-class GridVariants:
-    """The upfirdn2d variant of every launch on a batch-15 tensor (the
-    sample grids), by wrapping the launch function (counts untouched)."""
+class BatchVariants:
+    """The upfirdn2d variant of every launch on a tensor of batch ``batch``
+    (the sample grids' 15, the interpolation's 32), by wrapping the launch
+    function (counts untouched)."""
+
+    def __init__(self, batch: int):
+        self.batch = batch
 
     def __enter__(self):
         from multi_stylegan_torch.ops import upfirdn2d as up_mod
@@ -1096,7 +1232,7 @@ class GridVariants:
 
         def k3(x, kernel, up, down, pad, adjoint=False):
             out = self.orig(x, kernel, up, down, pad, adjoint)
-            if x.shape[0] == GRID_BATCH:
+            if x.shape[0] == self.batch:
                 self.seen[(tuple(x.shape), up, down, tuple(pad))] = self.mod.last_variant
             return out
         up_mod._upfirdn2d_cuda = k3
@@ -1104,6 +1240,13 @@ class GridVariants:
 
     def __exit__(self, *exc):
         self.mod._upfirdn2d_cuda = self.orig
+
+    def check(self, what: str) -> None:
+        """Fails unless a launch was seen and none but the C = 3 skips took
+        the general form."""
+        bad = {k: v for k, v in self.seen.items() if v == "general" and k[0][-1] != 3}
+        if not self.seen or bad:
+            raise AssertionError(f"{what} sites on the general variant: {bad or 'none seen'}")
 
 
 def random_eval_net(module, seed: int):
@@ -1176,6 +1319,7 @@ def phase_train_run(seed: int, iteration_ops: list):
     from multi_stylegan_torch.eval.inception_v3 import InceptionV3
     from multi_stylegan_torch.models.generator import Generator
     from multi_stylegan_torch.train.loop import Trainer
+    from multi_stylegan_torch.train.steps import TrainStep
 
     gcfg, _ = train_configs()
     tmp = tempfile.mkdtemp(prefix="train_run_")
@@ -1205,34 +1349,48 @@ def phase_train_run(seed: int, iteration_ops: list):
         common = CONFIG_ARGS + [
             "--path_to_data", tree, "--trap_weights", "--batch_size", str(TRAIN_BATCH),
             "--seed", str(seed), "--device", DEVICE, "--experiment_path", exp]
-        # validation every other epoch: each FID pass spends ~25-60 s in
+        # one validation, at the last epoch: each FID pass spends ~25-60 s in
         # scipy's sqrtm of two 2048 x 2048 products on the host, and four of
-        # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W)
-        overrides = dict(checkpoint_every_n_epochs=1, validate_every_n_epochs=2)
+        # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W); the
+        # last epoch runs the wrong-order schedule (its default start, 0.75
+        # of the epochs, falls after epoch 2 of 3)
+        overrides = dict(checkpoint_every_n_epochs=1, validate_every_n_epochs=TRAIN_RUN_EPOCHS,
+                         wrong_order_start=0.5)
+        orders, orig_main_step = [], TrainStep.main_step
+
+        def main_step(self, state, real, flags, draws):
+            orders.append(flags.wrong_order)
+            return orig_main_step(self, state, real, flags, draws)
         timer = MethodTimer((Trainer, "_save_sample_grids"), (Trainer, "save_checkpoint"),
                             (metrics.FID, "__call__"), (metrics.FVD, "__call__"),
                             (metrics.IS, "__call__"))
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        with warnings.catch_warnings(record=True) as caught, timer, GridVariants() as grids:
+        with warnings.catch_warnings(record=True) as caught, timer, BatchVariants(GRID_BATCH) as grids:
             warnings.simplefilter("always")
-            zero_counts()
-            run = train.main(common + ["--epochs", str(TRAIN_RUN_EPOCHS), "--profile_dir", prof],
-                             config_overrides=overrides, validation_samples=TRAIN_RUN_SAMPLES)
-            counts = read_counts()
+            TrainStep.main_step = main_step
+            try:
+                zero_counts()
+                run = train.main(common + ["--epochs", str(TRAIN_RUN_EPOCHS), "--profile_dir", prof],
+                                 config_overrides=overrides, validation_samples=TRAIN_RUN_SAMPLES)
+                counts = read_counts()
+            finally:
+                TrainStep.main_step = orig_main_step
         peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
         trainer = run["trainer"]
         failed_saves = [str(w.message) for w in caught if "save failed" in str(w.message)]
         if failed_saves:
             raise AssertionError(f"guarded saves failed: {failed_saves}")
-        steps = TRAIN_RUN_EPOCHS * len(dataset) // TRAIN_BATCH
+        steps_per_epoch = len(dataset) // TRAIN_BATCH
+        steps = TRAIN_RUN_EPOCHS * steps_per_epoch
         if not run["finite"] or run["steps"] != steps or trainer.state.step != steps:
             raise AssertionError(f"train run: {run['steps']} steps, finite={run['finite']}")
         if not all(counts.values()):
             raise AssertionError(f"train run: a kernel was never launched: {counts}")
-        bad = {k: v for k, v in grids.seen.items() if v == "general" and k[0][-1] != 3}
-        if not grids.seen or bad:
-            raise AssertionError(f"batch-15 grid sites on the general variant: {bad or 'none seen'}")
+        grids.check("batch-15 grid")
+        if sum(orders) != steps_per_epoch * (TRAIN_RUN_EPOCHS - math.ceil(
+                overrides["wrong_order_start"] * TRAIN_RUN_EPOCHS)):
+            raise AssertionError(f"wrong order ran in {sum(orders)} of {len(orders)} steps")
 
         # what the run left in its experiment directory
         logger = trainer.logger
@@ -1301,7 +1459,7 @@ def phase_train_run(seed: int, iteration_ops: list):
             torch.equal(saved[k], restored[k]) if hasattr(saved[k], "dtype") else saved[k] == restored[k])]
         if restored.keys() != saved.keys() or differ:
             raise AssertionError(f"restored state differs from the saved one: {differ[:8]}")
-        if resumed["state"].step != steps + len(dataset) // TRAIN_BATCH or not resumed["finite"]:
+        if resumed["state"].step != steps + steps_per_epoch or not resumed["finite"]:
             raise AssertionError(f"resume went to step {resumed['state'].step}")
         del resumed
         empty_cache()
@@ -1317,7 +1475,7 @@ def phase_train_run(seed: int, iteration_ops: list):
     metric_s = {m: secs[f"{m}.__call__"] for m in ("FID", "FVD", "IS")}
     row = {
         "tree": tree_row, "sequences": len(dataset), "steps": steps,
-        "resumed_to": steps + len(dataset) // TRAIN_BATCH,
+        "resumed_to": steps + steps_per_epoch, "wrong_order_steps": sum(orders),
         "loader_ms_per_batch": loader_ms,
         "data_wait_s": [m["data_wait_seconds"] for m in history],
         "step_s": [m["seconds"] for m in history],
@@ -1336,6 +1494,340 @@ def phase_train_run(seed: int, iteration_ops: list):
     }
     print("train_run", json.dumps(row), flush=True)
     return {k: counts[k] + resume_counts[k] for k in counts}, row
+
+
+# ----------------------------------------------------------------- slice 5
+
+
+def phase_bf16_parity(seed: int) -> dict:
+    """The bf16 D-step gradient on the card against the CPU's bf16 plain
+    path at full width, batch 1, with the self-calibrating tolerance:
+    max |card - cpu bf16| <= max(4 max |cpu bf16 - cpu f32|, 2^-8 peak)."""
+    ref, got, host_s = cpu_and_card_gradients(seed + 40, 1, ("float32", "bfloat16"), "bfloat16")
+    ref = {dtype: r["d_step"] for dtype, r in ref.items()}
+    err = flat_max(a - b for a, b in zip(got["d_step"], ref["bfloat16"]))
+    own = flat_max(a.float() - b for a, b in zip(ref["bfloat16"], ref["float32"]))
+    peak = flat_max(ref["float32"])
+    limit = max(4 * own, 2.0 ** -8 * peak)
+    row = {"max_abs_err": err, "cpu_bf16_vs_f32": own, "peak": peak, "limit": limit,
+           "host_seconds": host_s}
+    print("bf16 parity", json.dumps(row), flush=True)
+    if not (math.isfinite(err) and peak > 0 and err <= limit):
+        raise AssertionError(f"bf16 D-step gradient card vs CPU: {row}")
+    return row
+
+
+def phase_sequential_fft(seed: int):
+    """One main step with ADA's sequential warps (p = 0.5) and the fft
+    discriminator, f32, batch 24: finite, moved, exact launches; then its
+    D-step gradient on the card against the CPU's at batch 2."""
+    import torch
+
+    from multi_stylegan_torch.models.config import TrainingConfig
+    from multi_stylegan_torch.train.draws import TorchDraws
+    from multi_stylegan_torch.train.state import create_train_state
+    from multi_stylegan_torch.train.steps import StepFlags, TrainStep
+
+    gcfg, dcfg = train_configs(fft=True)
+    cfg = TrainingConfig(ada_sequential_warps=True)
+    gen = random_generator(gcfg, seed + 60).train().to(DEVICE)
+    disc = random_discriminator(dcfg, seed + 61).to(DEVICE)
+    state = create_train_state(gen, disc, cfg)
+    state.ada.p = torch.tensor(0.5, device=DEVICE)
+    ts = TrainStep(cfg, top_k_start_iteration=0, top_k_final_iteration=2)
+    draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(seed + 62))
+    real = real_batch(TRAIN_BATCH, gcfg.resolution, seed + 63).to(DEVICE)
+    before = [p.detach().clone() for p in disc.parameters()]
+    per_sub = {}
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            c0 = read_counts()
+            out = fn(*a, **kw)
+            c1 = read_counts()
+            per_sub[name] = {k: c1[k] - c0[k] for k in c1}
+            return out
+        return run
+
+    for name in ("d_step", "cut_mix_step", "g_step"):
+        setattr(ts, name, counted(name, getattr(ts, name)))
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = ts.main_step(state, real, StepFlags(wrong_order=True, do_cut_mix=True), draws)
+    counts = read_counts()
+    ms = (time.perf_counter() - t0) * 1e3
+    host = {k: float(v) for k, v in metrics.items()}
+    if not all(map(math.isfinite, host.values())) or not all_finite(gen) or not all_finite(disc):
+        raise AssertionError(f"sequential + fft main step: non-finite {host}")
+    if any(torch.equal(a, b) for a, b in zip(before, disc.parameters())):
+        raise AssertionError("sequential + fft: a D parameter did not move")
+    for name, want in per_sub.items():
+        if want != expected_launches(gcfg, dcfg, name, wrong_order=(name == "d_step")):
+            raise AssertionError(f"sequential + fft {name}: launches {want}")
+    del state, gen, disc
+    empty_cache()
+    ref, got, host_s = cpu_and_card_gradients(seed + 64, 2, ("float32",), "float32",
+                                              fft=True, sequential=True, p=0.5)
+    err = flat_max(a - b for a, b in zip(got["d_step"], ref["float32"]["d_step"]))
+    peak = flat_max(ref["float32"]["d_step"])
+    row = {"main_step_ms": ms, "launches": counts, "launches_by_sub_step": per_sub,
+           "metrics": host, "d_grad_max_abs_err": err, "d_grad_peak": peak,
+           "host_seconds": host_s}
+    print("sequential fft", json.dumps(row), flush=True)
+    if not (math.isfinite(err) and peak > 0 and err <= GRAD_TOL * peak):
+        raise AssertionError(f"sequential + fft D-step gradient card vs CPU: {err} vs peak {peak}")
+    return counts, row
+
+
+def phase_pl_chunked(seed: int) -> dict:
+    """The Trainer's path-length ladder (train/robust.py) at batch 24
+    (path-length batch 12), from one state and one set of draws: its grads
+    stage unchunked, and demoted to 4 chunks by out-of-memory errors
+    injected at 1 and 2 chunks; the gradients within 1e-4 of the peak, each
+    stage's time and peak memory.  Then the Trainer's whole update at 4
+    chunks (draws, grads, G step, EMA): its metrics, finite and moved G
+    parameters, 4 times the unchunked update's launches."""
+    import torch
+
+    from multi_stylegan_torch.models.config import TrainingConfig
+    from multi_stylegan_torch.train.draws import TorchDraws
+    from multi_stylegan_torch.train.robust import RobustPathLength
+    from multi_stylegan_torch.train.state import create_train_state
+    from multi_stylegan_torch.train.steps import TrainStep
+
+    gcfg, dcfg = train_configs()
+    cfg = TrainingConfig()
+    gen = random_generator(gcfg, seed + 50).train().to(DEVICE)
+    state = create_train_state(gen, random_discriminator(dcfg, seed + 51).to(DEVICE), cfg)
+    state.mean_path_length.fill_(0.5)
+    ts, squeezed, reports = TrainStep(cfg), TrainStep(cfg), []
+
+    def path_length_grads(state, pld, n_chunks=1):
+        if n_chunks < 4:
+            raise torch.cuda.OutOfMemoryError(f"injected: no room for {n_chunks} chunk(s)")
+        return TrainStep.path_length_grads(squeezed, state, pld, n_chunks)
+    squeezed.path_length_grads = path_length_grads
+    ladders = {1: RobustPathLength(ts), 4: RobustPathLength(squeezed, report=reports.append)}
+    draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(seed + 52))
+    pld = ts.draw_path_length(gen, TRAIN_BATCH, draws)
+    row, out = {"path_length_batch": int(pld.probe.shape[0])}, {}
+    for n, ladder in ladders.items():
+        empty_cache()
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        out[n] = ladder.grads(state, pld)
+        sync()
+        row[f"grads_ms_{n}_chunks"] = (time.perf_counter() - t0) * 1e3
+        row[f"peak_memory_gib_{n}_chunks"] = (torch.cuda.max_memory_allocated() / 2**30
+                                              if DEVICE == "cuda" else None)
+        if out[n] is None or ladder.chunks != n:
+            raise AssertionError(f"path-length ladder ran at {ladder.chunks} chunks, not {n}")
+    if len(reports) != 2:
+        raise AssertionError(f"path-length ladder demotions: {reports}")
+    ref = [torch.zeros_like(p) if g is None else g for p, g in zip(state.g_opt.params, out[1][0])]
+    got = [torch.zeros_like(p) if g is None else g for p, g in zip(state.g_opt.params, out[4][0])]
+    peak, err = flat_max(ref), flat_max(a - b for a, b in zip(got, ref))
+    row.update(grad_max_abs_err=err, grad_peak=peak, path_length=[float(out[n][2]) for n in (1, 4)])
+    del out, ref, got
+
+    before = [p.detach().clone() for p in gen.parameters()]
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    pen, pl, metrics = ladders[4](state, draws)
+    sync()
+    counts = read_counts()
+    want = {k: 4 * v for k, v in expected_launches(gcfg, dcfg, "path_length_update").items()}
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, gen.parameters()))
+    row.update(update_ms_4_chunks=(time.perf_counter() - t0) * 1e3, update_launches=counts,
+               update_metrics={k: float(v) for k, v in metrics.items()},
+               update_path_length=float(pl), g_params_moved=moved)
+    print("pl chunked", json.dumps(row), flush=True)
+    if not (math.isfinite(err) and peak > 0 and err <= 1e-4 * peak):
+        raise AssertionError(f"chunked path length gradient: {err}, peak {peak}")
+    if (row["update_metrics"] != {"path_length_chunks": 4.0, "path_length_skipped": 0.0}
+            or counts != want or not (math.isfinite(float(pen)) and math.isfinite(float(pl)))
+            or not all_finite(gen) or moved == 0):
+        raise AssertionError(f"the Trainer's path-length update at 4 chunks: {row} "
+                             f"(launches expected {want})")
+    del state, gen, before
+    empty_cache()
+    return counts, row
+
+
+def snapshot(train_state: dict) -> dict:
+    """The tensors of a checkpoint's ``train_state`` the reference format
+    carries, copied to the host."""
+    flat = {"step": train_state["step"]}
+    for name in ("generator", "g_ema", "discriminator"):
+        for k, v in train_state[name].items():
+            flat[f"{name}.{k}"] = v.detach().cpu().clone()
+    for name in ("g_opt", "d_opt"):
+        opt = train_state[name]
+        for i, (m, v) in enumerate(zip(opt["exp_avg"], opt["exp_avg_sq"])):
+            flat[f"{name}.exp_avg.{i}"] = m.detach().cpu().clone()
+            flat[f"{name}.exp_avg_sq.{i}"] = v.detach().cpu().clone()
+        flat[f"{name}.count"] = int(opt["count"])
+    return flat
+
+
+def launches_per_g_forward(gcfg) -> dict:
+    """K1 / K3 launches of one sampling forward from one latent (no mixing)."""
+    s = model_sites(gcfg, None)
+    return {"K1": gcfg.depth_style_mapping + s["g_styled"], "K2": 0, "K3": s["g_k3"], "K4": 0}
+
+
+def phase_reference(seed: int, trained_dir: str, work: str):
+    """The trained bf16 iteration's checkpoint -> ``cli.export`` -> a
+    reference-format .pt -> ``cli.convert`` -> the trainer's checkpoint,
+    bitwise the source for everything the format carries; then the training
+    CLI from the .pt (Adam moments installed) and the sampling CLI on the
+    models directory it writes."""
+    import torch
+
+    from multi_stylegan_torch.cli import convert, export, sample, train
+    from multi_stylegan_torch.io.checkpoint import CheckpointManager
+
+    gcfg, dcfg = train_configs()
+    source = snapshot(CheckpointManager(trained_dir).load()["train_state"])
+    pt = os.path.join(work, "reference.pt")
+    t0 = time.perf_counter()
+    export.main([trained_dir, pt] + CONFIG_ARGS)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = torch.load(pt, map_location="cpu", weights_only=True)  # read in full
+    load_s = time.perf_counter() - t0
+    keys = sorted(loaded)
+    del loaded
+    t0 = time.perf_counter()
+    convert.main([pt, os.path.join(work, "converted"), "--step", str(source["step"])] + CONFIG_ARGS)
+    convert_s = time.perf_counter() - t0
+    back = snapshot(CheckpointManager(os.path.join(work, "converted")).load()["train_state"])
+    differ = [k for k in source if not (torch.equal(source[k], back[k])
+                                        if isinstance(source[k], torch.Tensor)
+                                        else source[k] == back[k])]
+    if back.keys() != source.keys() or differ or source["g_opt.count"] < 1:
+        raise AssertionError(f"export -> convert is not the source state: {differ[:8]}")
+
+    # the training CLI from the .pt: one epoch of the synthetic fixture
+    exp = os.path.join(work, "from_pt")
+    zero_counts()
+    run = train.main(CONFIG_ARGS + [
+        "--synthetic", "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--seed", str(seed),
+        "--device", DEVICE, "--no_validation_metrics", "--load_checkpoint", pt,
+        "--experiment_path", exp], config_overrides=dict(checkpoint_every_n_epochs=1))
+    train_counts = read_counts()
+    state, steps = run["state"], run["steps"]
+    per_step = {k: expected_launches(gcfg, dcfg, "d_step")[k]
+                + expected_launches(gcfg, dcfg, "g_step")[k] for k in train_counts}
+    want = {k: v * steps + grid_launches(gcfg, 1)[k] for k, v in per_step.items()}
+    counts_ok = (int(state.g_opt.count) == source["g_opt.count"] + steps
+                 and int(state.d_opt.count) == source["d_opt.count"] + steps)
+    if not run["finite"] or train_counts != want or not counts_ok:
+        raise AssertionError(f"training from the .pt: finite={run['finite']}, launches "
+                             f"{train_counts} (expected {want}), Adam counts "
+                             f"{int(state.g_opt.count)} / {int(state.d_opt.count)}")
+    ema = {k: v.detach().cpu() for k, v in state.g_ema.state_dict().items()}
+    del run, state
+    empty_cache()
+
+    # the sampling CLI on the port's own checkpoints
+    out = os.path.join(work, "samples_from_models")
+    zero_counts()
+    srun = sample.main(CONFIG_ARGS + ["--checkpoint", os.path.join(exp, "models"),
+                                      "--samples", str(BATCH), "--batch_size", str(BATCH),
+                                      "--seed", str(seed), "--output", out, "--device", DEVICE])
+    sample_counts = read_counts()
+    loaded = sample.load_generator(os.path.join(exp, "models"), gcfg, torch.device("cpu"))
+    same = all(torch.equal(v, ema[k]) for k, v in loaded.state_dict().items())
+    want = {k: v * 1 for k, v in launches_per_g_forward(gcfg).items()}
+    if not (srun["finite"] and same and sample_counts == want and len(os.listdir(out)) == 2 * BATCH):
+        raise AssertionError(f"sampling the port's checkpoint: finite={srun['finite']}, "
+                             f"EMA loaded bitwise={same}, launches {sample_counts}")
+    row = {"pt_mb": os.path.getsize(pt) / 2**20, "pt_keys": keys, "export_s": export_s,
+           "load_s": load_s, "convert_s": convert_s, "tensors_compared": len(source),
+           "train_from_pt": {"steps": steps, "launches": train_counts,
+                             "g_adam_count": source["g_opt.count"] + steps},
+           "sample_from_models": {"samples": srun["samples"], "launches": sample_counts,
+                                  "seconds": srun["seconds"]}}
+    print("reference", json.dumps(row), flush=True)
+    return {k: train_counts[k] + sample_counts[k] for k in train_counts}, pt, row
+
+
+INTERP_FRAMES, INTERP_BATCH, INTERP_ANCHORS = 96, 32, 16
+
+
+def gif_layout(path: str):
+    """(width, height, frames) of a GIF, walking its blocks."""
+    data = Path(path).read_bytes()
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"{path}: not a GIF89a")
+    w, h = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
+    i = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+    frames = 0
+
+    def skip_blocks(i):
+        while data[i]:
+            i += data[i] + 1
+        return i + 1
+
+    while data[i] != 0x3B:
+        if data[i] == 0x21:
+            i = skip_blocks(i + 2)
+        elif data[i] == 0x2C:
+            frames += 1
+            i = skip_blocks(i + 11)
+        else:
+            raise AssertionError(f"{path}: unknown block 0x{data[i]:02x} at {i}")
+    return w, h, frames
+
+
+def phase_interpolate(seed: int, pt: str, work: str):
+    """The interpolation CLI at the flagship config from the reference .pt:
+    96 frames at batch 32; the GIF's frame count and size, finite frames,
+    the launches of three forwards, the upfirdn2d variant of every batch-32
+    site, and two rows of the CLI's own first batch against the CPU's
+    images of the latents the CLI fed them (fixed noise: each sample is
+    independent of the rest of its batch)."""
+    import torch
+
+    from multi_stylegan_torch.cli import interpolate, sample
+
+    gcfg, _ = train_configs()
+    out = os.path.join(work, "interpolation")
+    with BatchVariants(INTERP_BATCH) as sites:
+        zero_counts()
+        run = interpolate.main(CONFIG_ARGS + [
+            "--checkpoint", pt, "--frames", str(INTERP_FRAMES), "--batch_size", str(INTERP_BATCH),
+            "--anchors", str(INTERP_ANCHORS), "--seed", str(seed), "--output", out,
+            "--device", DEVICE])
+        counts = read_counts()
+    forwards = -(-INTERP_FRAMES // INTERP_BATCH)
+    want = {k: v * forwards for k, v in launches_per_g_forward(gcfg).items()}
+    h, w = gcfg.resolution
+    layout = gif_layout(run["gif"])
+    if layout != (2 * w, h, INTERP_FRAMES) or not run["finite"] or counts != want:
+        raise AssertionError(f"interpolation CLI: GIF {layout}, finite={run['finite']}, "
+                             f"launches {counts} (expected {want})")
+    sites.check("batch-32 interpolation")
+    rows = [0, INTERP_BATCH - 1]
+    got = torch.from_numpy(run["first_batch"][rows])
+    with torch.inference_mode():
+        ref = sample.load_generator(pt, gcfg, torch.device("cpu"))(
+            torch.from_numpy(run["latents"][rows]), randomize_noise=False)
+    peak, err = float(ref.abs().max()), float((got - ref).abs().max())
+    row = {"frames": run["frames"], "seconds": run["seconds"],
+           "frames_per_s": run["frames"] / run["seconds"],
+           "generate_frames_per_s": run["frames"] / run["generate_seconds"],
+           "gif_mb": os.path.getsize(run["gif"]) / 2**20, "gif_layout": layout,
+           "launches": counts, "sites": {str(k): v for k, v in sites.seen.items()},
+           "rows_compared": rows, "max_abs_err": err, "peak": peak}
+    print("interpolate", json.dumps(row), flush=True)
+    if not (math.isfinite(err) and err <= SAMPLE_TOL * max(1.0, peak)):
+        raise AssertionError(f"interpolation batch-32 rows card vs CPU: {err}, peak {peak}")
+    return counts, row
 
 
 # --------------------------------------------------------------------- main
@@ -1382,6 +1874,21 @@ def kernel_line(train_rows: dict, sample_report: dict, launches: dict) -> dict:
     return {"kernels": out}
 
 
+def bf16_iteration_kernels(train_rows: dict) -> dict:
+    """Per kernel, the bf16 regularised iteration: site ms x launches (its
+    D, cut-mix and G steps' bf16 sites at the bf16 times, R1's and path
+    length's f32 sites at the f32 times), and the bound in those bytes."""
+    out = {}
+    for k, rows in train_rows.items():
+        def total(ms_key, bf16_key):
+            return sum(r["launches_bf16_iteration_bf16"] * r[bf16_key]
+                       + r["launches_bf16_iteration_f32"] * r[ms_key] for r in rows)
+        out[k] = {"ms": total("ms", "ms_bf16"), "bound_ms": total("bound_ms", "bound_ms_bf16"),
+                  "launches": sum(r["launches_bf16_iteration_bf16"]
+                                  + r["launches_bf16_iteration_f32"] for r in rows)}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1413,44 +1920,59 @@ def main() -> int:
 
     seconds = {"build": time.perf_counter() - t0}
 
-    def phase(name, fn, *a):
+    def phase(name, fn, *a, **kw):
         t = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         seconds[name] = time.perf_counter() - t
+        print(f"phase {name}: {seconds[name]:.1f} s", flush=True)
         return out
 
-    report = phase("kernels", phase_kernels, args.seed)
-    counts, slice_row, forward_inputs = phase("sample", phase_slice, args.seed, report)
-    if args.profile:
-        slice_row["profile"] = phase_profile(*forward_inputs)
-    del forward_inputs
-    cli_counts, cli_row = phase("train_cli", phase_train_cli, args.seed)
-    iter_counts, census, iter_row = phase("train_iteration", phase_train_iteration, args.seed)
-    train_rows = phase("grads", phase_grad_sites, args.seed, census)
-    parity_row = phase("parity", phase_train_parity, args.seed)
-    run_counts, run_row = phase("train_run", phase_train_run, args.seed,
-                                iter_row["top_device_ops"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        report = phase("kernels", phase_kernels, args.seed)
+        counts, slice_row, forward_inputs = phase("sample", phase_slice, args.seed, report)
+        if args.profile:
+            slice_row["profile"] = phase_profile(*forward_inputs)
+        del forward_inputs
+        cli_counts, cli_row = phase("train_cli", phase_train_cli, args.seed)
+        iter_counts, census, iter_row = phase("train_iteration", phase_train_iteration, args.seed)
+        trained = os.path.join(work, "trained")
+        bf16_counts, census_bf16, bf16_row = phase(
+            "bf16_iteration", phase_train_iteration, args.seed, "bfloat16", save_to=trained)
+        bf16_row["parity"] = phase("bf16_parity", phase_bf16_parity, args.seed)
+        train_rows = phase("grads", phase_grad_sites, args.seed, census, census_bf16)
+        parity_row = phase("parity", phase_train_parity, args.seed)
+        seq_counts, seq_row = phase("sequential_fft", phase_sequential_fft, args.seed)
+        pl_counts, pl_row = phase("pl_chunked", phase_pl_chunked, args.seed)
+        run_counts, run_row = phase("train_run", phase_train_run, args.seed,
+                                    iter_row["top_device_ops"])
+        ref_counts, pt, ref_row = phase("reference", phase_reference, args.seed, trained, work)
+        interp_counts, interp_row = phase("interpolate", phase_interpolate, args.seed, pt, work)
 
     sample_counts = {"K1": counts["fused_leaky_relu"], "K2": 0,
                      "K3": counts["upfirdn2d"], "K4": 0}
-    launches = {k: sample_counts[k] + cli_counts[k] + iter_counts[k] + run_counts[k]
-                for k in KERNELS}
+    by_path = {"sample_cli": sample_counts, "train_cli": cli_counts,
+               "train_iteration": iter_counts, "bf16_iteration": bf16_counts,
+               "sequential_fft": seq_counts, "pl_ladder": pl_counts, "train_run": run_counts,
+               "reference": ref_counts, "interpolate": interp_counts}
+    launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     line = kernel_line(train_rows, report, launches)
-    seconds["total"] = total = time.perf_counter() - t_start
+    bf16_kernels = bf16_iteration_kernels(train_rows)
+    print("bf16 iteration kernels", json.dumps(bf16_kernels))
+    seconds["total"] = time.perf_counter() - t_start
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": smi, "sampling_sites": report, "slice": slice_row,
-             "train_cli": cli_row, "train_iteration": iter_row, "train_sites": train_rows,
-             "train_parity": parity_row, "train_run": run_row, "launches_by_path": {
-                 "sample_cli": sample_counts, "train_cli": cli_counts,
-                 "train_iteration": iter_counts, "train_run": run_counts},
-             "seconds": seconds, **line}, indent=1))
+             "train_cli": cli_row, "train_iteration": iter_row, "bf16_iteration": bf16_row,
+             "bf16_iteration_kernels": bf16_kernels, "train_sites": train_rows,
+             "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
+             "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
+             "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))
     print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)
     print(json.dumps(line))

@@ -1,11 +1,13 @@
 """Sampling CLI of the PyTorch port (reference scripts/get_gan_samples.py:30-60).
 
-Loads the EMA generator from a reference-format ``.pt`` (the published
-6-key checkpoint, or what ``multi_stylegan_tpu.cli.export`` writes) or makes
-random weights from ``--seed``, draws ``--samples`` samples with
+Loads the EMA generator, with its fixed noise buffers, from ``--checkpoint``:
+a checkpoint of the port's trainer (``checkpoint_<step>.pt``, or a models
+directory, whose newest is taken) or a reference-format ``.pt`` (the
+published 6-key checkpoint, or what ``cli/export.py`` writes); or makes
+random weights from ``--seed``.  Draws ``--samples`` samples with
 p_mixed_noise = 0 and fresh random noise, and writes per-domain PNG strips.
 
-    python -m multi_stylegan_torch.cli.sample --samples 32 --output samples
+    python -m multi_stylegan_torch.cli.sample --checkpoint exp/models --samples 32
     python -m multi_stylegan_torch.cli.sample --tiny --device cpu
 
 Runs on the GPU unless ``--device cpu`` is given; without CUDA it stops.
@@ -20,7 +22,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+from multi_stylegan_torch.io.checkpoint import read_checkpoint
 from multi_stylegan_torch.io.images import save_prediction
+from multi_stylegan_torch.io.reference import strip_prefixes
 from multi_stylegan_torch.models.config import GeneratorConfig, tiny_generator_config
 from multi_stylegan_torch.models.generator import Generator
 
@@ -29,8 +33,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--checkpoint", default="", type=str,
-                        help="Reference-format .pt whose 'generator_ema' is "
-                             "loaded. Empty = random weights from --seed.")
+                        help="The port trainer's checkpoint_<step>.pt or models "
+                             "directory (newest step), or a reference-format .pt; "
+                             "its EMA generator is loaded. Empty = random weights "
+                             "from --seed.")
     parser.add_argument("--samples", default=100, type=int)
     parser.add_argument("--output", default="samples", type=str)
     parser.add_argument("--batch_size", default=16, type=int)
@@ -55,18 +61,26 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def ema_state_dict(checkpoint: str) -> Dict[str, torch.Tensor]:
+    """The EMA generator's state dict (noise buffers included) in a checkpoint
+    of the port's trainer (a file, or a models directory: its newest step)
+    or in a reference-format .pt (``generator_ema``)."""
+    saved = read_checkpoint(checkpoint)
+    if "train_state" in saved:
+        return saved["train_state"]["g_ema"]
+    if "generator_ema" in saved:
+        return strip_prefixes(saved["generator_ema"])
+    raise ValueError(f"--checkpoint {checkpoint}: neither a checkpoint of the port's trainer "
+                     "('train_state') nor a reference .pt ('generator_ema')")
+
+
 def load_generator(checkpoint: str, config: GeneratorConfig, device: torch.device,
                    seed: int = 0) -> Generator:
-    """The EMA generator of a reference-format ``.pt``, or random weights
-    drawn from ``seed`` when ``checkpoint`` is empty."""
+    """The EMA generator of ``checkpoint`` (see :func:`ema_state_dict`), or
+    random weights drawn from ``seed`` when ``checkpoint`` is empty."""
     generator = Generator(config)
     if checkpoint:
-        if not checkpoint.endswith(".pt"):
-            raise ValueError(
-                f"--checkpoint {checkpoint!r}: only reference-format .pt files "
-                "are read by the port (orbax directories are not)")
-        ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        generator.load_state_dict(ckpt["generator_ema"], strict=True)
+        generator.load_state_dict(ema_state_dict(checkpoint), strict=True)
     else:
         generator.reset_parameters(torch.Generator().manual_seed(seed))
     return generator.to(device).eval()

@@ -11,14 +11,18 @@ TIFF tree (``--path_to_data``) or the synthetic fixture (``--synthetic``).
 Writes the experiment directory of the JAX logger (metrics, hyperparameters,
 sample grids, ``models/checkpoint_<step>.pt`` every 5 epochs), validates
 with FID / FVD / IS every 10 epochs when the metric weights are found
-(``MSG_TPU_INCEPTION_PT``, ``MSG_TPU_I3D_PT``), resumes from a checkpoint
-directory (``--load_checkpoint``) and traces steps 2-5 with torch.profiler
-(``--profile_dir``).  Runs on the GPU unless ``--device cpu`` is given;
-without CUDA it stops.
+(``MSG_TPU_INCEPTION_PT``, ``MSG_TPU_I3D_PT``) and traces steps 2-5 with
+torch.profiler (``--profile_dir``).  ``--dtype bfloat16`` runs the D, cut-mix
+and G steps in bf16 (R1 and path length stay f32); ``--ada_sequential_warps``
+warps ADA's four affine stages one after another.  ``--load_checkpoint``
+takes a directory of the port's checkpoints (its newest is restored), one
+such file, or a reference-format ``.pt`` (the published checkpoint or
+``cli/export.py``'s: G, G-EMA, D, the noise buffers and, when the file has
+them, both Adam states and the path-length mean).  Runs on the GPU unless
+``--device cpu`` is given; without CUDA it stops.
 
 Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP item):
-a reference ``.pt`` in ``--load_checkpoint``, ``--dtype bfloat16``,
-``--ada_sequential_warps``, more than one device and the multi-host flags.
+more than one device and the multi-host flags.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from multi_stylegan_torch.data.synthetic import SyntheticTLFMDataset
 from multi_stylegan_torch.data.tlfm import TLFMDataset
 from multi_stylegan_torch.data.trap_weights import make_trap_weights_map
 from multi_stylegan_torch.io.logger import Logger
+from multi_stylegan_torch.io.checkpoint import read_checkpoint
+from multi_stylegan_torch.io.reference import import_reference_checkpoint
 from multi_stylegan_torch.models.config import (
     DiscriminatorConfig,
     GeneratorConfig,
@@ -70,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                         type=str, help="Path to the TLFM dataset (position folders of TIFFs).")
     parser.add_argument("--load_checkpoint", default="", type=str,
                         help="Directory of the port's checkpoint_<step>.pt files (an "
-                             "experiment's models/); its newest is restored.")
+                             "experiment's models/; its newest is restored), one such "
+                             "file, or a reference-format .pt.")
     parser.add_argument("--resume_training", default=False, action="store_true",
                         help="Resume: enables cut-mix/wrong-order/trap regimes immediately.")
     parser.add_argument("--no_top_k", default=False, action="store_true",
@@ -93,14 +100,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--trap_weight_inside", default=2.0, type=float,
                         help="Relative weight of the trap region (map normalized to mean 1).")
     parser.add_argument("--dtype", default="float32", type=str, choices=("float32", "bfloat16"),
-                        help="Activation compute dtype (only float32 is ported).")
+                        help="Activation compute dtype of the D, cut-mix and G steps "
+                             "(R1 and path length run in float32).")
     parser.add_argument("--no_remat", default=False, action="store_true",
                         help="Disable block rematerialization (more memory, faster backward).")
     parser.add_argument("--remat_min_px", default=0, type=int,
                         help="Selective remat: only blocks at >= this many pixels are "
                              "rematerialized (0 = all blocks).")
     parser.add_argument("--ada_sequential_warps", default=False, action="store_true",
-                        help="The reference's four separate ADA warps (not ported).")
+                        help="The reference's four separate ADA warps instead of one "
+                             "composed warp.")
     parser.add_argument("--ada_warp_fwd", default=None, type=str,
                         choices=("gather", "matmul", "matmul_unroll"),
                         help="Accepted and ignored: a TPU implementation choice of the "
@@ -125,12 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = [
-        (args.load_checkpoint.endswith(".pt") or os.path.isfile(args.load_checkpoint),
-         f"--load_checkpoint {args.load_checkpoint}: importing a reference .pt for training "
-         "(ROADMAP Queue 1: reference-.pt training import)"),
-        (args.dtype == "bfloat16", "--dtype bfloat16 (ROADMAP Queue 1: bf16 training)"),
-        (args.ada_sequential_warps,
-         "--ada_sequential_warps (ROADMAP Queue 1: ADA sequential_warps)"),
         (args.devices not in (None, 1) or args.model_parallel != 1,
          "--devices / --model_parallel other than 1 (ROADMAP Queue 1: DDP)"),
         (any(v is not None for v in (args.coordinator_address, args.num_processes,
@@ -142,18 +145,24 @@ def _refuse_unported(args) -> None:
             raise NotImplementedError(f"not ported yet: {what}")
 
 
+def model_configs(tiny: bool, compat_tower2_bug: bool = False, **kw):
+    """(generator, discriminator) configs: the 32px debug pair or the
+    flagship (no-RFP discriminator), with ``kw`` set on both."""
+    if tiny:
+        return (tiny_generator_config(compat_tower2_output_bug=compat_tower2_bug, **kw),
+                tiny_discriminator_config(**kw))
+    return (GeneratorConfig(compat_tower2_output_bug=compat_tower2_bug, **kw),
+            DiscriminatorConfig(no_rfp=True, **kw))
+
+
 def build(args, device: torch.device):
     """(generator, discriminator, training config, dataset) for ``args``."""
-    remat = dict(remat=not args.no_remat, remat_min_px=args.remat_min_px)
-    if args.tiny:
-        gcfg = tiny_generator_config(compat_tower2_output_bug=args.compat_tower2_bug, **remat)
-        dcfg = tiny_discriminator_config(**remat)
-    else:
-        gcfg = GeneratorConfig(compat_tower2_output_bug=args.compat_tower2_bug, **remat)
-        dcfg = DiscriminatorConfig(no_rfp=True, **remat)
+    gcfg, dcfg = model_configs(args.tiny, args.compat_tower2_bug, compute_dtype=args.dtype,
+                               remat=not args.no_remat, remat_min_px=args.remat_min_px)
     cfg = TrainingConfig(batch_size=args.batch_size, epochs=args.epochs,
                          lr_generator=args.lr_generator, lr_discriminator=args.lr_discriminator,
                          top_k=not args.no_top_k, ada=not args.no_ada,
+                         ada_sequential_warps=args.ada_sequential_warps,
                          resume_training=args.resume_training, seed=args.seed)
     init = torch.Generator().manual_seed(args.seed)
     generator, discriminator = Generator(gcfg), Discriminator(dcfg)
@@ -187,6 +196,26 @@ def validation_metrics(args, latent_dimensions: int, device: torch.device,
         return ()
 
 
+def load_checkpoint(trainer: Trainer, path: str) -> None:
+    """Restore ``path`` into the trainer: a directory of the port's
+    checkpoints (the newest), one such file, or a reference-format .pt."""
+    if os.path.isdir(path):
+        if not trainer.restore_latest(path):
+            raise FileNotFoundError(f"--load_checkpoint {path}: no checkpoint_<step>.pt there")
+        print(f"Restored step {trainer.state.step} from {path}")
+        return
+    saved = read_checkpoint(path)
+    if "train_state" in saved:
+        trainer.load_payload(saved)
+        print(f"Restored step {trainer.state.step} from {path}")
+        return
+    found = import_reference_checkpoint(trainer.state, saved)
+    print(f"Loaded reference .pt checkpoint {path}: G, G-EMA, D and noise buffers"
+          + "".join(f", {what}" for what in found)
+          + ("" if {"G Adam", "D Adam"} <= set(found) else
+             " (a missing Adam state starts fresh)"))
+
+
 def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, Any]] = None,
          validation_samples: Optional[int] = None) -> Dict[str, object]:
     """Run the CLI; returns what it did (steps, seconds, metrics, finiteness,
@@ -216,10 +245,7 @@ def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, 
                           args, generator.config.latent_dimensions, device, validation_samples),
                       trap_weights_map=trap_map, profile_dir=args.profile_dir)
     if args.load_checkpoint:
-        if not trainer.restore_latest(args.load_checkpoint):
-            raise FileNotFoundError(f"--load_checkpoint {args.load_checkpoint}: "
-                                    "no checkpoint_<step>.pt there")
-        print(f"Restored step {trainer.state.step} from {args.load_checkpoint}")
+        load_checkpoint(trainer, args.load_checkpoint)
 
     def report(step, m):
         print(f"step {step}: loss D={m['loss_discriminator_real'] + m['loss_discriminator_fake']:.4f}"

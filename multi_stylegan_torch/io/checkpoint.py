@@ -62,6 +62,18 @@ def load_train_state(state: TrainState, saved: Dict[str, Any]) -> None:
     state.mean_path_length.copy_(saved["mean_path_length"])
 
 
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """What a checkpoint file holds (the trainer's, or a reference-format
+    .pt), or a directory's newest ``checkpoint_<step>.pt``, memory-mapped on
+    the host (tensors and plain containers only)."""
+    if os.path.isdir(path):
+        manager = CheckpointManager(path)
+        if manager.latest_step() is None:
+            raise FileNotFoundError(f"{path}: no checkpoint_<step>.pt there")
+        return manager.load()
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+
+
 class CheckpointManager:
     """Rolling ``checkpoint_<step>.pt`` files under ``root``."""
 

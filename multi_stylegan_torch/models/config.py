@@ -4,8 +4,11 @@ Mirrors ``GeneratorConfig``, ``DiscriminatorConfig``, ``TrainingConfig`` and
 the ``tiny_*`` factories of the JAX package field for field (reference
 multi_stylegan/config.py:6-57 and train_multi_stylegan.py:4-28), so a config
 built with the same keyword arguments describes the same network and run in
-both.  ``TrainingConfig.compute_dtype`` and ``ada_sequential_warps`` are kept
-for that equality; the port's trainer runs in f32 with the composed warp.
+both.  The models' ``compute_dtype`` is what the trainer's D, cut-mix and G
+steps run in (R1 and path length always run in f32);
+``TrainingConfig.ada_sequential_warps`` picks ADA's four sequential warps
+over the composed one.  ``TrainingConfig.compute_dtype`` is kept for that
+equality and read by nothing: the CLI sets the models' dtype.
 """
 
 from __future__ import annotations

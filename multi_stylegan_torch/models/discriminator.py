@@ -13,7 +13,12 @@ State-dict keys and shapes are the reference's (what the JAX package's
 ``export_discriminator`` emits).  With ``config.remat`` each encoder and
 decoder block at >= ``remat_min_px`` pixels is recomputed in the backward
 pass (``torch.utils.checkpoint``, non-reentrant, so R1's double backward
-goes through it).  The ``fft`` input branch is not ported yet.
+goes through it).  ``forward`` takes a per-call compute dtype and remat, so
+the trainer's f32 R1 runs the same module and ``Parameter``s as its bf16
+steps.  With ``config.fft`` the input is widened by the normalised 3-D FFT
+over (T, H, W) of each domain, real and imaginary parts as 2·C·T more
+channels (u_net_2d_discriminator.py:106-122; JAX discriminator.py:71-83),
+computed on the f32 input by cuFFT (``torch.fft``) and cast afterwards.
 
 The cut-mix helpers at the end take their cut coordinates, corner and
 inversion from the caller's draws (u_net_2d_discriminator.py:384-448).
@@ -22,7 +27,7 @@ inversion from the caller's draws (u_net_2d_discriminator.py:384-448).
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -84,12 +89,11 @@ class Discriminator(nn.Module):
 
     def __init__(self, config: DiscriminatorConfig = DiscriminatorConfig(), device=None):
         super().__init__()
-        if config.fft:
-            raise NotImplementedError("the discriminator's fft input branch is not ported yet")
         self.config = cfg = config
         enc, dec = cfg.encoder_channels, cfg.decoder_channels
         n_enc = len(enc)
-        cin = cfg.input_channels
+        # the fft features add real and imaginary parts of every input channel
+        cin = cfg.input_channels * (3 if cfg.fft else 1)
         blocks = []
         for i, (_, cout) in enumerate(enc):
             if i == 2:
@@ -134,24 +138,31 @@ class Discriminator(nn.Module):
                 else:
                     p.zero_()
 
-    def _block(self, block: nn.Module, y: torch.Tensor, px: int) -> torch.Tensor:
-        cfg = self.config
-        if cfg.remat and px >= cfg.remat_min_px and torch.is_grad_enabled():
+    def _block(self, remat: bool, block: nn.Module, y: torch.Tensor, px: int) -> torch.Tensor:
+        if remat and px >= self.config.remat_min_px and torch.is_grad_enabled():
             return checkpoint(block, y, use_reentrant=False)
         return block(y)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, *, compute_dtype: Optional[str] = None,
+                remat: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``compute_dtype`` / ``remat`` override the config's for this call."""
         cfg = self.config
         if x.dim() != 5:
             raise ValueError(f"expected [B, C, T, H, W], got {tuple(x.shape)}")
         b, c, t, h, w = x.shape
-        dtype = getattr(torch, cfg.compute_dtype)
-        y = x.reshape(b, c * t, h, w).to(dtype).contiguous(memory_format=_CL)
+        dtype = getattr(torch, compute_dtype or cfg.compute_dtype)
+        remat = cfg.remat if remat is None else remat
+        y = x.reshape(b, c * t, h, w).to(dtype)
+        if cfg.fft:
+            f = torch.fft.fftn(x.float(), dim=(-3, -2, -1), norm="ortho")
+            parts = torch.stack([f.real, f.imag], dim=2)  # [B, C, 2, T, H, W]
+            y = torch.cat([y, parts.reshape(b, 2 * c * t, h, w).to(dtype)], dim=1)
+        y = y.contiguous(memory_format=_CL)
         n_enc = len(self.encoder_blocks)
         pad = blur_padding(4, 2, 3)
         features: List[torch.Tensor] = []
         for i, block in enumerate(self.encoder_blocks):
-            y = self._block(block, y, h >> i)
+            y = self._block(remat, block, y, h >> i)
             if i != n_enc - 1:
                 features.append(y)
                 conv, blur_mod = self.downscale_convolutions[i]
@@ -162,7 +173,7 @@ class Discriminator(nn.Module):
             up_mod, conv = self.transposed_convolutions[i]
             up = conv(_nchw(upsample2x(_nhwc(y), kernel=up_mod.kernel)))
             y = torch.cat([up, features[-(i + 1)]], dim=1)
-            y = self._block(block, y, (h >> (n_enc - 1)) << (i + 1))
+            y = self._block(remat, block, y, (h >> (n_enc - 1)) << (i + 1))
         y = self.final_mapping(y)
         return cls.float(), y[:, :, None].float()
 

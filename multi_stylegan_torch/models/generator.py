@@ -14,6 +14,8 @@ Port decisions:
   package's ``export_generator`` emits, so a reference checkpoint's
   ``generator_ema`` loads with ``load_state_dict(strict=True)``;
 * the images are ``[B, domains, T, H, W]`` in f32 whatever the compute dtype;
+  ``synthesize`` takes a per-call compute dtype and remat, so the trainer's
+  f32 regularisers run the same module and ``Parameter``s as its bf16 steps;
 * with ``config.remat`` and gradients on, each styled-conv and output block
   at >= ``remat_min_px`` pixels is recomputed in the backward pass
   (``torch.utils.checkpoint``, non-reentrant, so path length's double
@@ -22,6 +24,7 @@ Port decisions:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -277,21 +280,23 @@ class Generator(nn.Module):
 
     # ------------------------------------------------------------- synthesis
 
-    def _block(self, module: nn.Module, px: int, *args):
-        """Run a block, rematerialized in the backward pass where the config
-        asks for it (generator.py:184-195 of the JAX package)."""
-        cfg = self.config
-        if cfg.remat and px >= cfg.remat_min_px and torch.is_grad_enabled():
+    def _block(self, remat: bool, module: nn.Module, px: int, *args):
+        """Run a block, rematerialized in the backward pass where ``remat``
+        and the config's ``remat_min_px`` ask for it (generator.py:184-195
+        of the JAX package)."""
+        if remat and px >= self.config.remat_min_px and torch.is_grad_enabled():
             return checkpoint(module, *args, use_reentrant=False)
         return module(*args)
 
     def synthesize(self, wplus: torch.Tensor, noise: Sequence[torch.Tensor],
-                   return_latents: bool = False):
-        """wplus [B, n_latents, D] + per-layer noise -> [B, domains, T, H, W]."""
+                   return_latents: bool = False, *, compute_dtype: Optional[str] = None,
+                   remat: Optional[bool] = None):
+        """wplus [B, n_latents, D] + per-layer noise -> [B, domains, T, H, W].
+        ``compute_dtype`` / ``remat`` override the config's for this call."""
         cfg = self.config
         b = wplus.shape[0]
         compat = cfg.compat_tower2_output_bug
-        dtype = getattr(torch, cfg.compute_dtype)
+        dtype = getattr(torch, compute_dtype or cfg.compute_dtype)
         wplus = wplus.to(dtype)
         noise = [n.to(dtype) for n in noise]
         sc1, sc2 = self.starting_convolution_1, self.starting_convolution_2
@@ -301,7 +306,7 @@ class Generator(nn.Module):
         def const(ci):
             return ci.input.to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
 
-        run = self._block
+        run = functools.partial(self._block, cfg.remat if remat is None else remat)
         px = cfg.starting_resolution[0]
         out1, s = run(sc1, px, const(self.constant_input_1), wplus[:, 0], noise[0])
         out2 = run(sc2, px, const(self.constant_input_2), s, noise[0])

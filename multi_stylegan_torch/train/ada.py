@@ -8,7 +8,10 @@ package's train/ada.py has it:
 * the pipeline (ada.py:108-200) is flip -> 90-degree rotation (one angle per
   batch, zeros padding) -> circular integer translation (one shift per
   batch, +-12.5%) -> one composed affine warp for iso scale, rotation, aniso
-  scale and rotation (reflect padding), each stage gated per image;
+  scale and rotation (reflect padding), each stage gated per image; with
+  ``sequential_warps`` the four stages are four separately gated warps, as
+  the reference's kornia calls are (ada.py:613-630 of the JAX package),
+  from the same draws;
 * the random draws come from the caller (:class:`AdaDraws`), so the same
   draws give the same images as the JAX pipeline.
 
@@ -18,8 +21,10 @@ indices mirror corner by corner about 0 and n-1 (align_corners style), and
 zeros padding clips each corner's index and then masks it out.  It is a
 gather, so autograd's adjoint is the exact scatter-add (a CUDA scatter-add
 uses atomics: the images' gradient may differ in the last bits run to run).
-Only first order is needed: R1 runs on un-augmented reals.  The
-``sequential_warps`` mode is not ported yet.
+Only first order is needed: R1 runs on un-augmented reals.  The resampler
+computes in f32 whatever the images' dtype (a bf16 image times the f32
+bilinear weights promotes), as the JAX gather does; the trainer's images
+are f32 in any case (the generator returns f32, the discriminator casts).
 """
 
 from __future__ import annotations
@@ -230,9 +235,11 @@ def _roll(images: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return images.index_select(2, rows).index_select(3, cols)
 
 
-def augmentation_pipeline(images: torch.Tensor, draws: AdaDraws) -> torch.Tensor:
+def augmentation_pipeline(images: torch.Tensor, draws: AdaDraws,
+                          sequential_warps: bool = False) -> torch.Tensor:
     """The ADA pipeline on NCHW images [B, C*T, H, W] with the given draws
-    (the composed-warp form of the JAX package, ada.py:553-637)."""
+    (ada.py:553-637 of the JAX package): the four affine stages composed
+    into one warp, or with ``sequential_warps`` warped one after another."""
     b = images.shape[0]
 
     def gate(mask, augmented, current):
@@ -246,6 +253,16 @@ def augmentation_pipeline(images: torch.Tensor, draws: AdaDraws) -> torch.Tensor
     images = gate(draws.rot90, rotated, images)
     images = gate(draws.translate, _roll(images, draws.shift), images)
 
+    if sequential_warps:
+        zero = torch.zeros(b, device=images.device)
+        for mask, angle, scale in ((draws.iso, zero, draws.s_iso.repeat(1, 2)),
+                                   (draws.rot1, draws.angle, ones),
+                                   (draws.aniso, zero, draws.s_aniso),
+                                   (draws.rot2, draws.angle2, ones)):
+            inv = scale_mat(1.0 / scale) @ rot_mat(-angle)
+            images = gate(mask, apply_affine_matrix(images, inv, "reflect"), images)
+        return images
+
     eye = torch.eye(2, device=images.device).expand(b, 2, 2)
 
     def gated(mask, mat):
@@ -258,9 +275,10 @@ def augmentation_pipeline(images: torch.Tensor, draws: AdaDraws) -> torch.Tensor
     return apply_affine_matrix(images, inv, "reflect")
 
 
-def augment_sequences(images: torch.Tensor, draws: AdaDraws) -> torch.Tensor:
+def augment_sequences(images: torch.Tensor, draws: AdaDraws,
+                      sequential_warps: bool = False) -> torch.Tensor:
     """ADA entry point for [B, C, T, H, W] sequences: flatten channel*time,
     augment, restore (ada.py:66-72)."""
     b, c, t, h, w = images.shape
-    flat = augmentation_pipeline(images.reshape(b, c * t, h, w), draws)
+    flat = augmentation_pipeline(images.reshape(b, c * t, h, w), draws, sequential_warps)
     return flat.reshape(b, c, t, h, w)

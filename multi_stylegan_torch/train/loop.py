@@ -5,8 +5,10 @@ Per batch: the epoch's flags (wrong order from 3/4 of the epochs on, trap
 weights from 1/4 on, a cut-mix coin whose probability rises linearly to
 0.5; all three at once under ``resume_training``), ``main_step``, and on
 every 16th step R1 and the path-length update, the EMA then following the
-path-length update instead of the main step.  The top-k schedule runs over
-the middle half of all steps.  Every step's metrics go to the logger.
+path-length update instead of the main step.  The path-length update goes
+through train/robust.py's ladder of chunkings, which retries it in more
+chunks when memory runs out.  The top-k schedule runs over the middle half
+of all steps.  Every step's metrics go to the logger.
 
 After every epoch: ``seqs_per_sec``, the fixed-latent sample grids (EMA and
 training generator, fixed and random noise), validation every
@@ -35,6 +37,7 @@ from multi_stylegan_torch.io.checkpoint import (
 )
 from multi_stylegan_torch.io.logger import Logger
 from multi_stylegan_torch.models.config import TrainingConfig
+from multi_stylegan_torch.train.robust import RobustPathLength
 from multi_stylegan_torch.train.state import create_train_state
 from multi_stylegan_torch.train.steps import StepFlags, TrainStep
 from multi_stylegan_torch.utils.profiling import Trace
@@ -84,6 +87,7 @@ class Trainer:
         trap = None if trap_weights_map is None else torch.as_tensor(trap_weights_map).to(self.device)
         self.step_fn = TrainStep(config, top_k_start_iteration=start,
                                  top_k_final_iteration=final, trap_weights_map=trap)
+        self.path_length = RobustPathLength(self.step_fn)
         self.state = create_train_state(generator, discriminator, config)
         self.ckpt = CheckpointManager(self.logger.path_models)
         # fixed validation latents: 15 pairs, always mixed (model_wrapper.py:99-102)
@@ -121,8 +125,12 @@ class Trainer:
         zero = torch.zeros((), device=self.device)
         metrics["loss_discriminator_regularization"] = (
             step_fn.r1_update(state, real) if lazy_d else zero)
-        pl_pen, pl = step_fn.path_length_update(state, self.draws) if lazy_g else (zero, zero)
-        metrics.update(loss_path_length_regularization=pl_pen, path_length=pl)
+        if lazy_g:
+            pl_pen, pl, pl_metrics = self.path_length(state, self.draws)
+        else:
+            pl_pen, pl = zero, zero
+            pl_metrics = {"path_length_chunks": zero, "path_length_skipped": zero}
+        metrics.update(loss_path_length_regularization=pl_pen, path_length=pl, **pl_metrics)
         return metrics
 
     def train(self, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
@@ -246,9 +254,15 @@ class Trainer:
         ckpt = self.ckpt if directory is None else CheckpointManager(directory)
         if ckpt.latest_step() is None:
             return False
-        saved = ckpt.load()
+        self.load_payload(ckpt.load())
+        return True
+
+    def load_payload(self, saved: Dict[str, object]) -> None:
+        """Restore a :meth:`checkpoint_payload` in place; one without the
+        loader's or the draws' state (cli/convert.py's) leaves those as they
+        are."""
         load_train_state(self.state, saved["train_state"])
-        load_loader_state(self.loader, saved["loader"])
+        if "loader" in saved:
+            load_loader_state(self.loader, saved["loader"])
         if "draws" in saved:
             self.draws.generator.set_state(saved["draws"])
-        return True

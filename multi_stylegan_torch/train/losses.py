@@ -59,6 +59,11 @@ def path_length_grads(synth_fn: Callable[[torch.Tensor], torch.Tensor],
     return grad
 
 
+def per_sample_path_lengths(grads: torch.Tensor) -> torch.Tensor:
+    """[B] path lengths sqrt(mean over the w+ slots of ||grad||^2 + 1e-8)."""
+    return torch.sqrt(grads.square().sum(dim=2).mean(dim=1) + 1e-8)
+
+
 def path_length_penalty(grads: torch.Tensor, mean_path_length: torch.Tensor,
                         decay: float = 0.01):
     """Penalty against a decayed running mean (loss.py:378-395): the mean
@@ -66,7 +71,7 @@ def path_length_penalty(grads: torch.Tensor, mean_path_length: torch.Tensor,
     so the gradient carries the factor (1 - decay).
 
     Returns (penalty, path length, new running mean, detached)."""
-    pl = torch.sqrt(grads.square().sum(dim=2).mean(dim=1) + 1e-8).mean()
+    pl = per_sample_path_lengths(grads).mean()
     mean_detached = mean_path_length.detach()
     new_mean = mean_detached + decay * (pl - mean_detached)
     return (pl - new_mean).square(), pl, new_mean.detach()

@@ -1,0 +1,99 @@
+"""The path-length update's out-of-memory ladder (the JAX package's
+train/robust.py and the Trainer's ``_robust_pl_step``, loop.py:77-110).
+
+The path-length update is the iteration's largest second-order pass (f32
+synthesis with a double backward).  :class:`RobustPathLength` runs it as
+:meth:`TrainStep.path_length_grads` then :meth:`TrainStep.path_length_apply`
+and, when the grads stage raises ``torch.cuda.OutOfMemoryError``, retries
+the same update with the batch in more chunks: the unchunked split form
+first, then each of :func:`pl_chunk_tiers`.  Only the grads stage is
+guarded: it leaves the state as it was, so a retry starts clean, and its
+draws were made once before the first try, so every tier computes the same
+update.  A tier that ran stays the active one for later updates.
+
+When every tier has failed, the update is skipped with a warning, from then
+on, as the JAX Trainer does (it never moves to the CPU).  The G parameters
+and the running mean then stay as they were, but the EMA still follows:
+the main step left it to this update.  The step's metrics say which tier
+ran (``path_length_chunks``, the chunk count; 0 when none ran) and whether
+the due update was skipped (``path_length_skipped``); a tier change is
+printed.  The JAX ladder's compile-helper workarounds have no counterpart:
+nothing is compiled here.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from multi_stylegan_torch.train.ema import ema_update
+from multi_stylegan_torch.train.state import TrainState
+
+
+def pl_chunk_tiers(pl_batch: int) -> Tuple[int, ...]:
+    """Chunk counts of the ladder below the unchunked form: 2 and 4, half
+    the batch and the whole batch (sub-batch 1), those that divide it
+    (JAX robust.py:37-48)."""
+    cand = {2, 4, pl_batch // 2, pl_batch}
+    return tuple(sorted(n for n in cand if 2 <= n <= pl_batch and pl_batch % n == 0))
+
+
+class RobustPathLength:
+    """``(state, draws) -> (penalty, path length, metrics)`` through the
+    ladder of chunkings of ``step`` (a :class:`TrainStep`)."""
+
+    def __init__(self, step, report: Callable[[str], None] = print) -> None:
+        self.step = step
+        self.report = report
+        self.tiers = (1,) + pl_chunk_tiers(step.path_length_batch(step.cfg.batch_size))
+        self.index = 0  # into tiers; len(tiers) once every tier has failed
+
+    @property
+    def chunks(self) -> int:
+        """The active tier's chunk count, 0 when the update is skipped."""
+        return self.tiers[self.index] if self.index < len(self.tiers) else 0
+
+    def _demote(self, message: str) -> None:
+        failed = self.chunks
+        self.index += 1
+        if self.chunks:
+            self.report(f"path length: out of memory in {failed} chunk(s); "
+                        f"retrying in {self.chunks} chunks")
+        else:
+            warnings.warn(
+                f"path-length regularization DISABLED: out of memory at every chunking "
+                f"{self.tiers} ({message.splitlines()[0][:200]}). Training continues "
+                "without it.", RuntimeWarning)
+
+    def grads(self, state: TrainState, pld):
+        """:meth:`TrainStep.path_length_grads` of the draws ``pld`` at the
+        active tier, demoted on out-of-memory until a tier runs; None once
+        every tier has failed."""
+        while self.chunks:
+            try:
+                return self.step.path_length_grads(state, pld, self.chunks)
+            except torch.cuda.OutOfMemoryError as exc:
+                message = str(exc)
+            # the failed pass's tensors went with the exception's frames
+            if pld.probe.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self._demote(message)
+        return None
+
+    def __call__(self, state: TrainState, draws) -> Tuple[torch.Tensor, torch.Tensor,
+                                                          Dict[str, torch.Tensor]]:
+        step = self.step
+        out = self.grads(state, step.draw_path_length(state.generator, step.cfg.batch_size, draws))
+        dev = state.mean_path_length.device
+        if out is not None:
+            grads, pen, pl, new_mean = out
+            step.path_length_apply(state, grads, new_mean)
+            return pen, pl, {
+                "path_length_chunks": torch.tensor(float(self.chunks), device=dev),
+                "path_length_skipped": torch.zeros((), device=dev)}
+        ema_update(state.g_ema, state.generator, step.cfg.ema_decay)
+        zero = torch.zeros((), device=dev)
+        return zero, zero, {"path_length_chunks": zero,
+                            "path_length_skipped": torch.ones((), device=dev)}

@@ -13,8 +13,19 @@ steps.py:426-514).  Port decisions:
 * with a trap-weight map and the ``trap_weight`` flag on, the D step's
   real and fake pixel losses and the G step's top-k pixel loss weight each
   pixel by the map (JAX steps.py:139-146, 176-188, 289-298);
-* R1 and path length run in f32 because the whole trainer does: the port
-  trains f32 models only (bf16 training is not ported yet);
+* the D, cut-mix and G steps run in the models' ``compute_dtype`` (bf16
+  under ``--dtype bfloat16``); R1 and path length always run in f32 with
+  remat (JAX steps.py:88-100: their grad of grad overflows in bf16).  The
+  f32 variants are the same modules and ``Parameter``s called with a
+  per-call dtype, so the optimizers and the EMA see one set of tensors;
+* ADA warps with the composed affine or, under
+  ``TrainingConfig.ada_sequential_warps``, four sequential warps;
+* the path-length update splits into :meth:`path_length_grads` (leaves the
+  state alone) and :meth:`path_length_apply`, and the grads stage can run
+  the batch in chunks (JAX steps.py:524-634): its draws are made once for
+  the whole batch (:meth:`draw_path_length`) and sliced per chunk, so every
+  chunking sees the sample set of the unchunked step; train/robust.py
+  walks the chunkings when memory runs out;
 * ``r1_update`` takes R1's penalty from one D forward; the JAX ``r1_step``
   also runs a second forward for predictions that split mode discards.
 """
@@ -38,6 +49,21 @@ from multi_stylegan_torch.train.ema import ema_update
 from multi_stylegan_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+
+# How R1 and path length call the models (JAX steps.py:88-100).
+F32 = dict(compute_dtype="float32", remat=True)
+
+
+@dataclasses.dataclass
+class PathLengthDraws:
+    """The draws of one path-length update for its whole batch: the two
+    latent sets and the mixing coin, the mixing slot, per-layer noise and
+    the probe of the image's shape."""
+
+    latents: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    inject: torch.Tensor
+    noise: List[torch.Tensor]
+    probe: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,10 +99,15 @@ class TrainStep:
         """Two mapped latents mixed at a drawn slot with probability
         p_mixed_noise (JAX steps.py:117-125)."""
         gcfg = generator.config
-        z1, z2, use_mix = draws.latents(batch, gcfg.latent_dimensions, self.cfg.p_mixed_noise)
+        latents = draws.latents(batch, gcfg.latent_dimensions, self.cfg.p_mixed_noise)
+        return self._wplus(generator, latents, draws.inject_index(gcfg.n_latents))
+
+    @staticmethod
+    def _wplus(generator, latents, inject: torch.Tensor) -> torch.Tensor:
+        z1, z2, use_mix = latents
         w1, w2 = generator.map_latent(z1), generator.map_latent(z2)
-        inject = torch.where(use_mix, draws.inject_index(gcfg.n_latents),
-                             torch.full_like(use_mix, gcfg.n_latents, dtype=torch.long))
+        inject = torch.where(use_mix, inject, torch.full_like(
+            use_mix, generator.config.n_latents, dtype=torch.long))
         return generator.make_wplus(w1, w2, inject)
 
     def sample_fakes(self, generator, batch: int, draws) -> torch.Tensor:
@@ -85,7 +116,8 @@ class TrainStep:
 
     def _d_ada(self, state: TrainState, images: torch.Tensor, draws):
         b, _, _, h, w = images.shape
-        return state.discriminator(augment_sequences(images, draws.ada(b, h, w, state.ada.p)))
+        return state.discriminator(augment_sequences(images, draws.ada(b, h, w, state.ada.p),
+                                                     self.cfg.ada_sequential_warps))
 
     def _update_ada(self, state: TrainState, r: torch.Tensor) -> None:
         cfg = self.cfg
@@ -143,7 +175,7 @@ class TrainStep:
 
     def r1_step(self, state: TrainState, real: torch.Tensor) -> torch.Tensor:
         """R1 on un-augmented reals (f32), one D update; returns the penalty."""
-        pen = losses.r1_penalty(state.discriminator, real)
+        pen = losses.r1_penalty(lambda x: state.discriminator(x, **F32), real)
         state.d_opt.step(self._grads(self.cfg.w_discriminator_regularization_r1 * pen,
                                      state.d_opt))
         return pen.detach()
@@ -192,28 +224,96 @@ class TrainStep:
 
     # ------------------------------------------------------ path-length step
 
+    def path_length_batch(self, b: int) -> int:
+        """The shrunk path-length batch for a training batch of ``b``."""
+        return max(1, int(self.cfg.batch_size_shrink_path_length_regularization * b))
+
+    def draw_path_length(self, generator, b: int, draws) -> PathLengthDraws:
+        """All draws of a path-length update at training batch ``b``."""
+        gcfg = generator.config
+        bs = self.path_length_batch(b)
+        noise = draws.noise(bs, generator._noise_shapes())
+        latents = draws.latents(bs, gcfg.latent_dimensions, self.cfg.p_mixed_noise)
+        inject = draws.inject_index(gcfg.n_latents)
+        probe = draws.path_length_probe(
+            (bs, gcfg.num_domains, gcfg.sequence_length, *gcfg.resolution))
+        return PathLengthDraws(latents, inject, noise, probe)
+
+    def _path_length_grads_wrt_wplus(self, generator, pld: PathLengthDraws,
+                                     rows: slice = slice(None)) -> torch.Tensor:
+        """grad_w+ (G(w+) . y) of the draws' ``rows`` through the f32 G,
+        differentiable again in G's params."""
+        z1, z2, use_mix = pld.latents
+        wplus = self._wplus(generator, (z1[rows], z2[rows], use_mix), pld.inject)
+        noise = [n[rows] for n in pld.noise]
+        return losses.path_length_grads(
+            lambda wp: generator.synthesize(wp, noise, **F32), wplus, pld.probe[rows])
+
+    def _path_length_penalty(self, state: TrainState, pld: PathLengthDraws):
+        grads_pl = self._path_length_grads_wrt_wplus(state.generator, pld)
+        return losses.path_length_penalty(grads_pl, state.mean_path_length,
+                                          self.cfg.path_length_decay)
+
     def path_length_loss(self, state: TrainState, b: int, draws):
         """(penalty, path length, new running mean) on the shrunk batch: f32,
         differentiable in G's params through a double backward."""
-        cfg = self.cfg
-        g = state.generator
-        bs = max(1, int(cfg.batch_size_shrink_path_length_regularization * b))
-        noise = draws.noise(bs, g._noise_shapes())
-        wplus = self.build_wplus(g, bs, draws)
-        gcfg = g.config
-        probe = draws.path_length_probe(
-            (bs, gcfg.num_domains, gcfg.sequence_length, *gcfg.resolution))
-        grads_pl = losses.path_length_grads(lambda wp: g.synthesize(wp, noise), wplus, probe)
-        return losses.path_length_penalty(grads_pl, state.mean_path_length, cfg.path_length_decay)
+        return self._path_length_penalty(state, self.draw_path_length(state.generator, b, draws))
 
-    def path_length_step(self, state: TrainState, b: int, draws):
-        """Path-length regularization of G; one G update."""
-        pen, pl, new_mean = self.path_length_loss(state, b, draws)
-        state.g_opt.step(self._grads(self.cfg.w_generator_regularization * pen, state.g_opt))
+    def path_length_grads(self, state: TrainState, pld: PathLengthDraws, n_chunks: int = 1):
+        """(G's parameter gradients of the weighted penalty, penalty, path
+        length, new running mean) without touching the state.
+
+        With ``n_chunks`` > 1 the batch runs in that many slices of the same
+        draws (JAX steps.py:557-634).  The per-sample lengths couple only
+        through their mean pl, so the gradient is
+        w * 2 (1 - decay) (pl - new mean) / bs * sum_i d pl_i / d theta,
+        accumulated chunk by chunk; the running mean is updated once."""
+        cfg, params = self.cfg, state.g_opt.params
+        if n_chunks == 1:
+            pen, pl, new_mean = self._path_length_penalty(state, pld)
+            grads = torch.autograd.grad(cfg.w_generator_regularization * pen, params,
+                                        allow_unused=True)
+            return list(grads), pen.detach(), pl.detach(), new_mean
+        bs = pld.probe.shape[0]
+        if bs % n_chunks:
+            raise ValueError(f"path-length batch {bs} is not divisible into {n_chunks} chunks")
+        cbs = bs // n_chunks
+        acc: List[Optional[torch.Tensor]] = [None] * len(params)
+        total = torch.zeros((), device=pld.probe.device)
+        for i in range(n_chunks):
+            rows = slice(i * cbs, (i + 1) * cbs)
+            s = losses.per_sample_path_lengths(
+                self._path_length_grads_wrt_wplus(state.generator, pld, rows)).sum()
+            for k, g in enumerate(torch.autograd.grad(s, params, allow_unused=True)):
+                if g is not None:
+                    acc[k] = g if acc[k] is None else acc[k] + g
+            total = total + s.detach()
+        pl = total / bs
+        mean = state.mean_path_length.detach()
+        new_mean = mean + cfg.path_length_decay * (pl - mean)
+        scale = (cfg.w_generator_regularization * 2.0 * (1.0 - cfg.path_length_decay)
+                 * (pl - new_mean) / bs)
+        grads = [None if g is None else scale * g for g in acc]
+        return grads, (pl - new_mean).square(), pl, new_mean
+
+    def _apply_path_length(self, state: TrainState, grads, new_mean: torch.Tensor) -> None:
+        state.g_opt.step(grads)
         # a non-finite observation must not poison the carried running mean
         state.mean_path_length = torch.where(torch.isfinite(new_mean), new_mean,
                                              state.mean_path_length)
-        return pen.detach(), pl.detach()
+
+    def path_length_apply(self, state: TrainState, grads, new_mean: torch.Tensor) -> None:
+        """One G update from :meth:`path_length_grads`' output, then the EMA."""
+        self._apply_path_length(state, grads, new_mean)
+        ema_update(state.g_ema, state.generator, self.cfg.ema_decay)
+
+    def path_length_step(self, state: TrainState, b: int, draws):
+        """Path-length regularization of G at training batch ``b``; one G
+        update without the EMA (the JAX step of this name)."""
+        pld = self.draw_path_length(state.generator, b, draws)
+        grads, pen, pl, new_mean = self.path_length_grads(state, pld)
+        self._apply_path_length(state, grads, new_mean)
+        return pen, pl
 
     # ----------------------------------------------------------- entry points
 
@@ -238,7 +338,10 @@ class TrainStep:
     r1_update = r1_step  # split mode's name (JAX steps.py:504-506)
 
     def path_length_update(self, state: TrainState, draws) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Path-length step at the configured batch, then the EMA."""
-        pen, pl = self.path_length_step(state, self.cfg.batch_size, draws)
-        ema_update(state.g_ema, state.generator, self.cfg.ema_decay)
+        """Path-length update at the configured batch, unchunked: the draws,
+        :meth:`path_length_grads`, then :meth:`path_length_apply` (G step
+        and EMA), as each tier of train/robust.py's ladder runs it."""
+        pld = self.draw_path_length(state.generator, self.cfg.batch_size, draws)
+        grads, pen, pl, new_mean = self.path_length_grads(state, pld)
+        self.path_length_apply(state, grads, new_mean)
         return pen, pl

@@ -104,15 +104,24 @@ def test_cli_trains_on_a_tlfm_tree_and_writes_the_experiment(tree, tmp_path, mon
 
 
 @pytest.mark.parametrize("argv", [
-    ["--dtype", "bfloat16"], ["--ada_sequential_warps"], ["--devices", "2"],
-    ["--model_parallel", "2"], ["--coordinator_address", "localhost:1234"],
-    ["--num_processes", "2", "--process_id", "0"], ["--load_checkpoint", "reference.pt"],
+    ["--devices", "2"], ["--model_parallel", "2"], ["--coordinator_address", "localhost:1234"],
+    ["--num_processes", "2", "--process_id", "0"],
 ], ids=lambda a: a[0])
 def test_unported_flags_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.main(["--tiny", "--synthetic", "--device", "cpu",
                         "--experiment_path", str(tmp_path)] + argv)
     assert not os.listdir(tmp_path)  # refused before anything was written
+
+
+@pytest.mark.parametrize("argv", [
+    ["--dtype", "bfloat16"], ["--ada_sequential_warps"], ["--load_checkpoint", "reference.pt"],
+], ids=lambda a: a[0])
+def test_ported_flags_are_not_refused(argv):
+    """bf16 training, the sequential warps and a reference .pt in
+    --load_checkpoint are ported (held against the JAX package in
+    test_torch_port_{bf16,fft_ada,reference_ckpt}.py): the CLI takes them."""
+    train_cli._refuse_unported(train_cli.build_parser().parse_args(argv))
 
 
 def test_tpu_choices_are_accepted_and_ignored():

@@ -111,11 +111,12 @@ def test_flagship_sites_take_a_tiled_variant(batch, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("batch", [15, 24])
+@pytest.mark.parametrize("batch", [15, 24, 32])
 def test_sampling_sites_take_a_tiled_variant(batch, dtype):
     """The trainer samples without gradients: the sample grids at batch 15
-    (15 fixed latent pairs) and validation at batch 24.  Every G forward
-    launch there takes the tiled form, except the C = 3 skip upsamples."""
+    (15 fixed latent pairs) and validation at batch 24; the interpolation
+    CLI at batch 32.  Every G forward launch there takes the tiled form,
+    except the C = 3 skip upsamples."""
     sites = generator_sites(GeneratorConfig(), batch)
     assert len(sites) == 2 * 6
     for shape, up, down, pad in sites:
