@@ -29,9 +29,12 @@ beside it.  Phases, each raising on failure:
               ``path_length_update``.  Every loss and parameter finite, the
               parameters moved, and each sub-step's K1-K4 launches exactly
               what :func:`expected_launches` works out from the model's
-              structure.  A census of the iteration's launches by call site
-              feeds phase 5.  The same iteration runs once more under
-              torch.profiler for its top device ops.
+              structure, its dx-only K2 launches what
+              :func:`expected_dx_only` does.  A census of the iteration's
+              launches by call site feeds phase 5.  The same iteration runs
+              once more under torch.profiler for its top device ops; then
+              R1's and path length's gradients of one state with TF32 off
+              and on (their times, and TF32's distance from f32).
    4b. bf16_iteration - the same iteration with both models in bf16 (after
               one warm-up main step): exact launches, the D, cut-mix and G
               steps' K1 / K3 sites in bf16 and R1's and path length's in
@@ -40,12 +43,15 @@ beside it.  Phases, each raising on failure:
               max |card - cpu bf16| <= max(4 max |cpu bf16 - cpu f32|,
               2^-8 peak).
 5. grads    - at every K1 / K3 call site the iterations launched (batch 24,
-              12 and 6): K1 and K3 forward, K2 (dx and db) and K4 (backward
-              and double backward) against the plain versions' autograd on
+              12 and 6): K1 and K3 forward, K2 (dx and db; and the dx-only
+              form with an f32 addend, the double backward's) and K4
+              (backward and double backward) against the plain versions on
               the card, in f32 and bf16; kernel, plain and library times and
-              the bound in f32, kernel times and the bound in bf16.  Every
-              K3/K4 site but the C = 3 skip upsamples must take a tiled
-              upfirdn2d variant, in both dtypes.
+              the bound in f32, kernel times and the bound in bf16.  K2's
+              bias sum must be the same bits in two launches at the largest
+              site.  Every K3/K4 site but the C = 3 skip upsamples must take
+              a tiled upfirdn2d variant, in both dtypes.  Then K2 in bf16 at
+              M * C just over 2^31 (its last rows and its bias sum).
 6. parity   - GPU vs CPU (plain versions, TF32 off): a D-step gradient, the
               R1 penalty's parameter gradient and the path-length gradient
               at full width, batch 2, same weights and draws.
@@ -84,7 +90,8 @@ beside it.  Phases, each raising on failure:
               against the CPU's images of the latents the CLI fed them.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
-of upfirdn2d the launch took), one ``edge`` line per upfirdn2d edge case,
+of upfirdn2d the launch took; K2 has a line per form), one ``edge`` line
+per upfirdn2d edge case and one for K2's,
 one ``train_run`` line (loader, step, grid, checkpoint and metric seconds,
 checkpoint MB, peak memory, the top 15 device ops), one line for each phase
 from 4b on, a ``seconds`` line, the card's name and power limit,
@@ -568,7 +575,7 @@ def sync() -> None:
 def zero_counts() -> None:
     from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
 
-    fused_act.launches = fused_act.grad_launches = 0
+    fused_act.launches = fused_act.grad_launches = fused_act.grad_dx_only_launches = 0
     up_mod.launches = up_mod.grad_launches = 0
 
 
@@ -649,6 +656,15 @@ def expected_launches(gcfg, dcfg, sub_step: str, wrong_order: bool = False) -> d
     return table[sub_step]
 
 
+def expected_dx_only(gcfg, dcfg, sub_step: str) -> int:
+    """K2 launches of the dx-only form (``FusedLeakyReLUDoubleBackward``) in
+    one sub-step: the double backward at every D K1 site in R1 and at the
+    styled convs in path length (the mapping's K2 runs once, not twice);
+    none in the first-order sub-steps."""
+    s = model_sites(gcfg, dcfg)
+    return {"r1_update": s["d_k1"], "path_length_update": s["g_styled"]}.get(sub_step, 0)
+
+
 def random_discriminator(config, seed: int):
     """Reference init from ``seed``, then every bias and NonLocal gamma drawn
     nonzero (gamma starts at 0, which would hide the attention path)."""
@@ -698,9 +714,10 @@ class Census:
             self.sites[("K1", tuple(x.shape), str(x.dtype))] += 1
             return f1(x, *a)
 
-        def k2(g, *a):
-            self.sites[("K2", tuple(g.shape), str(g.dtype))] += 1
-            return f2(g, *a)
+        def k2(g, out, slope, scale, addend=None, need_db=True):
+            form = () if need_db else ("dx only",)
+            self.sites[("K2", tuple(g.shape), str(g.dtype)) + form] += 1
+            return f2(g, out, slope, scale, addend, need_db)
 
         def k3(x, kernel, up, down, pad, adjoint=False):
             kind = "K4" if adjoint else "K3"
@@ -774,6 +791,7 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
 
     from multi_stylegan_torch.io.checkpoint import CheckpointManager, train_state_dict
     from multi_stylegan_torch.models.config import TrainingConfig
+    from multi_stylegan_torch.ops import fused_act
     from multi_stylegan_torch.train.draws import TorchDraws
     from multi_stylegan_torch.train.state import create_train_state
     from multi_stylegan_torch.train.steps import StepFlags, TrainStep
@@ -789,17 +807,18 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
               list(gen.named_parameters(prefix="g")) + list(disc.named_parameters(prefix="d"))}
     ema_before = [p.clone() for p in state.g_ema.parameters()]
 
-    timings, per_sub, dtypes = {}, {}, {}
+    timings, per_sub, dx_only, dtypes = {}, {}, {}, {}
 
     def timed(name, fn):
         def run(*a, **kw):
             sync()
-            c0, t0 = read_counts(), time.perf_counter()
+            c0, d0, t0 = read_counts(), fused_act.grad_dx_only_launches, time.perf_counter()
             with Census() as sub:
                 out = fn(*a, **kw)
             c1 = read_counts()  # synchronizes
             timings[name] = (time.perf_counter() - t0) * 1e3
             per_sub[name] = {k: c1[k] - c0[k] for k in c1}
+            dx_only[name] = fused_act.grad_dx_only_launches - d0
             # the dtypes the sub-step's K1 / K3 sites ran in (4-d: the spatial ones)
             dtypes[name] = sorted({k[2] for k in sub.sites if len(k[1]) == 4})
             return out
@@ -840,6 +859,9 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
         want = expected_launches(gcfg, dcfg, name, wrong_order=(name == "d_step"))
         if per_sub[name] != want:
             raise AssertionError(f"[{dtype}] {name}: launches {per_sub[name]}, expected {want}")
+        if dx_only[name] != expected_dx_only(gcfg, dcfg, name):
+            raise AssertionError(f"[{dtype}] {name}: {dx_only[name]} dx-only K2 launches, "
+                                 f"expected {expected_dx_only(gcfg, dcfg, name)}")
     # the D, cut-mix and G steps run in the configs' dtype, R1 and path length in f32
     step_dtype = str(getattr(torch, dtype))
     for name in ("d_step", "cut_mix_step", "g_step", "r1_update", "path_length_update"):
@@ -859,14 +881,55 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
         sync()
     if save_to:
         CheckpointManager(save_to).save(state.step, {"train_state": train_state_dict(state)})
+    tf32 = tf32_regularisers(ts, state, real, draws) if dtype == "float32" else None
     row = {"dtype": dtype, "ms": first_ms, "ms_under_profiler": timings,
            "launches": counts, "launches_by_sub_step": per_sub,
+           "k2_dx_only_launches_by_sub_step": dx_only,
            "site_dtypes_by_sub_step": dtypes, "peak_memory_gib": peak, "metrics": host,
-           "ada_p": float(state.ada.p), "top_device_ops": tr.top_device_ops(15)}
+           "ada_p": float(state.ada.p), "top_device_ops": tr.top_device_ops(15), "tf32": tf32}
     print("slice train", json.dumps(row), flush=True)
     del state, gen, disc
     empty_cache()
     return counts, census.sites, row
+
+
+def tf32_regularisers(ts, state, real, draws) -> dict:
+    """R1's D gradient and path length's G gradient of one state and one set
+    of draws, with TF32 off (the CLIs' setting, ``utils/precision.py``) and
+    then on (torch's default for cuDNN): each pass's time (R1 then path
+    length, host clock around synchronised work; the first TF32 pass picks
+    its cuDNN algorithms), and the TF32 gradients' max distance from the
+    f32 ones against each gradient's peak.  No update is applied."""
+    import torch
+
+    from multi_stylegan_torch.train import losses
+    from multi_stylegan_torch.train.steps import F32
+
+    pld = ts.draw_path_length(state.generator, TRAIN_BATCH, draws)
+    row, grads = {}, {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            sync()
+            t0 = time.perf_counter()
+            pen = losses.r1_penalty(lambda x: state.discriminator(x, **F32), real)
+            r1 = torch.autograd.grad(pen, state.d_opt.params, allow_unused=True)
+            del pen
+            pl = ts.path_length_grads(state, pld)[0]
+            sync()
+        finally:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        row[f"r1_pl_ms_tf32_{'on' if tf32 else 'off'}"] = (time.perf_counter() - t0) * 1e3
+        grads[tf32] = {"r1": [t for t in r1 if t is not None],
+                       "path_length": [t for t in pl if t is not None]}
+    for name in ("r1", "path_length"):
+        row[f"{name}_grad_peak"] = flat_max(grads[False][name])
+        row[f"{name}_grad_max_abs_diff"] = flat_max(
+            a - b for a, b in zip(grads[True][name], grads[False][name]))
+    print("tf32 regularisers", json.dumps(row), flush=True)
+    del grads
+    empty_cache()
+    return row
 
 
 def library_conv_backward(x_shape, taps, up, down, pad, g_nhwc):
@@ -924,12 +987,17 @@ def phase_grad_sites(seed: int, census, census_bf16) -> dict:
         keys = {site_key(k): k for k in list(census) + list(census_bf16) if k[0] == kind}
         return [keys[k] for k in sorted(keys)]
 
+    largest = max((site_key(k)[1] for k in sites("K1")), key=math.prod)
     for key in sites("K1"):
         shape = key[1]
         c, m = shape[-1], math.prod(shape[:-1])
         fwd = {"shape": list(shape), **launches(key)}
-        bwd = {"shape": list(shape), **launches(("K2",) + key[1:])}
+        bwd = {"shape": list(shape), "part": "dx and db", **launches(("K2",) + key[1:])}
+        # the double backward's form: dx only, an f32 addend over the rows
+        dxo = {"shape": list(shape), "part": "dx only, addend",
+               **launches(("K2",) + key[1:] + ("dx only",))}
         bias = torch.randn(c, generator=g, device=dev)
+        add = torch.randn(c, generator=g, device=dev)
         for name, dt in dtypes.items():
             size = torch.tensor([], dtype=dt).element_size()
             x = torch.randn(shape, generator=g, device=dev).to(dt)
@@ -944,6 +1012,14 @@ def phase_grad_sites(seed: int, census, census_bf16) -> dict:
                                            (xr, br), gy)
             bwd[f"max_abs_err_{name}"] = max(check(f"K2 dx {shape}", dx, rdx, name),
                                              check(f"K2 db {shape}", db, rdb, name))
+            if shape == largest:  # the bias sum's partial rows, added in a fixed order
+                _, db2 = fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0)
+                bwd[f"db_same_bits_two_launches_{name}"] = bool(torch.equal(db, db2))
+                if not bwd[f"db_same_bits_two_launches_{name}"]:
+                    raise AssertionError(f"K2 db {shape} [{name}]: two launches differ")
+            ggo = fused_act.FusedLeakyReLUDoubleBackward.apply(gy, add, out, 0.2, 1.0)
+            rggo, _ = fused_act.fused_leaky_relu_grad_ref(gy, out, 0.2, 1.0, add, need_db=False)
+            dxo[f"max_abs_err_{name}"] = check(f"K2 dx only {shape}", ggo, rggo, name)
             if name == "float32":
                 fwd["ms"] = cuda_ms(lambda: fused_act.fused_leaky_relu(x, bias, 0.2, 1.0))
                 fwd["plain_ms"] = cuda_ms(
@@ -952,20 +1028,30 @@ def phase_grad_sites(seed: int, census, census_bf16) -> dict:
                 bwd["ms"] = cuda_ms(lambda: fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0))
                 bwd["plain_ms"] = cuda_ms(
                     lambda: fused_act.fused_leaky_relu_grad_ref(gy, out, 0.2, 1.0), min_iters=1)
-                bwd["library_ms"] = None
+                bwd["library_ms"] = None  # no single PyTorch call gives dx and the bias sum
+                dxo["ms"] = cuda_ms(
+                    lambda: fused_act.FusedLeakyReLUDoubleBackward.apply(gy, add, out, 0.2, 1.0))
+                dxo["plain_ms"] = cuda_ms(lambda: fused_act.fused_leaky_relu_grad_ref(
+                    gy, out, 0.2, 1.0, add, need_db=False), min_iters=1)
+                dxo["library_ms"] = None
                 sfx = ""
             else:
                 fwd["ms_bf16"] = cuda_ms(lambda: fused_act.fused_leaky_relu(x, bias, 0.2, 1.0))
                 bwd["ms_bf16"] = cuda_ms(
                     lambda: fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0))
+                dxo["ms_bf16"] = cuda_ms(
+                    lambda: fused_act.FusedLeakyReLUDoubleBackward.apply(gy, add, out, 0.2, 1.0))
                 sfx = "_bf16"
             fwd["bound_ms" + sfx], fwd["bound_by" + sfx] = bound_ms(
                 2 * m * c * size + c * 4, 4 * m * c)
-            bwd["bound_ms" + sfx], bwd["bound_by" + sfx] = bound_ms(
-                3 * m * c * size + c * 4, 4 * m * c)
-            del x, gy, out, dx, db, rdx, rdb
+            # g and out read, dx written; the bias sum written or the addend read
+            for row in (bwd, dxo):
+                row["bound_ms" + sfx], row["bound_by" + sfx] = bound_ms(
+                    3 * m * c * size + c * 4, 4 * m * c)
+            del x, gy, out, dx, db, rdx, rdb, ggo, rggo
         emit("K1", fwd)
         emit("K2", bwd)
+        emit("K2", dxo)
 
     for key in sites("K3"):
         _, shape, _, up, down, pad, ksize = key
@@ -1047,7 +1133,42 @@ def phase_grad_sites(seed: int, census, census_bf16) -> dict:
         total = {k: sum(v for key, v in cen.items() if key[0] == k) for k in rows}
         if counted != total:
             raise AssertionError(f"{label} site rows cover {counted} launches, the census {total}")
-    return rows
+    return rows, k2_edge(g)
+
+
+K2_EDGE_ELEMENTS = 2**31 + 8 * 512  # [4194312, 512]: M * C just over 2^31
+
+
+def k2_edge(g) -> dict:
+    """K2 in bf16 on [M, 512] with M * C just over 2^31 (64-bit offsets):
+    the last rows of dx against the plain version on those rows, and the
+    bias sum against the plain version's, taken in slices to keep it
+    cheap."""
+    import torch
+
+    from multi_stylegan_torch.ops import fused_act
+
+    dev = g.device
+    c = 512
+    m = K2_EDGE_ELEMENTS // c
+    gy = torch.randn((m, c), generator=g, device=dev, dtype=torch.bfloat16)
+    out = torch.randn((m, c), generator=g, device=dev, dtype=torch.bfloat16)
+    dx, db = fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0)
+    tail = slice(m - 4096, m)
+    err = check("K2 edge dx (last rows)", dx[tail],
+                fused_act.fused_leaky_relu_grad_ref(gy[tail], out[tail], 0.2, 1.0)[0], "bfloat16")
+    rdb = torch.zeros(c, device=dev)
+    for lo in range(0, m, 1 << 20):
+        rdb += fused_act.fused_leaky_relu_grad_ref(gy[lo:lo + (1 << 20)], out[lo:lo + (1 << 20)],
+                                                   0.2, 1.0)[1]
+    err = max(err, check("K2 edge db", db, rdb, "bfloat16"))
+    row = {"kernel": "K2", "shape": [m, c], "elements": m * c, "max_abs_err_bfloat16": err,
+           "ms_bf16": cuda_ms(lambda: fused_act.FusedLeakyReLUBackward.apply(gy, out, 0.2, 1.0))}
+    row["bound_ms_bf16"], row["bound_by_bf16"] = bound_ms(3 * m * c * 2 + c * 4, 4 * m * c)
+    print("edge", json.dumps(row), flush=True)
+    del gy, out, dx, db, rdb
+    empty_cache()
+    return row
 
 
 class RecordingDraws:
@@ -1836,7 +1957,7 @@ def phase_interpolate(seed: int, pt: str, work: str):
 KERNELS = {
     "K1": ("fused_leaky_relu", "triton", "multi_stylegan_torch/ops/fused_act.py",
            "multi_stylegan_tpu/ops/pallas_kernels.py:97"),
-    "K2": ("fused_leaky_relu_grad", "triton", "multi_stylegan_torch/ops/fused_act.py",
+    "K2": ("fused_leaky_relu_grad", "cuda", "multi_stylegan_torch/csrc/fused_act.cu",
            "multi_stylegan_tpu/ops/pallas_kernels.py:106"),
     "K3": ("upfirdn2d", "cuda", "multi_stylegan_torch/csrc/upfirdn2d.cu",
            "multi_stylegan_tpu/ops/pallas_kernels.py:209"),
@@ -1905,10 +2026,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available: the port's kernels run only on the GPU")
     sys.path.insert(0, str(REPO))
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
     from multi_stylegan_torch.ops import cuda_build
+    from multi_stylegan_torch.utils.precision import pin_f32
+
+    pin_f32()  # TF32 off, as the CLIs run: the parity phases hold f32 to f32
 
     t_start = t0 = time.perf_counter()
     libs = cuda_build.build_all()
@@ -1939,7 +2060,7 @@ def main() -> int:
         bf16_counts, census_bf16, bf16_row = phase(
             "bf16_iteration", phase_train_iteration, args.seed, "bfloat16", save_to=trained)
         bf16_row["parity"] = phase("bf16_parity", phase_bf16_parity, args.seed)
-        train_rows = phase("grads", phase_grad_sites, args.seed, census, census_bf16)
+        train_rows, k2_edge_row = phase("grads", phase_grad_sites, args.seed, census, census_bf16)
         parity_row = phase("parity", phase_train_parity, args.seed)
         seq_counts, seq_row = phase("sequential_fft", phase_sequential_fft, args.seed)
         pl_counts, pl_row = phase("pl_chunked", phase_pl_chunked, args.seed)
@@ -1970,6 +2091,7 @@ def main() -> int:
             {"card": smi, "sampling_sites": report, "slice": slice_row,
              "train_cli": cli_row, "train_iteration": iter_row, "bf16_iteration": bf16_row,
              "bf16_iteration_kernels": bf16_kernels, "train_sites": train_rows,
+             "k2_edge": k2_edge_row,
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
              "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
              "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))

@@ -33,6 +33,7 @@ import torch
 from multi_stylegan_torch.cli.sample import load_generator, resolve_device
 from multi_stylegan_torch.io.images import encode_gif, encode_png, gif_indices
 from multi_stylegan_torch.models.config import GeneratorConfig, tiny_generator_config
+from multi_stylegan_torch.utils.precision import pin_f32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,6 +85,7 @@ def main(argv: Optional[List[str]] = None, anchors: Optional[np.ndarray] = None)
     first batch.  ``anchors`` [A, D] replaces the seeded draw."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    pin_f32()
     config = tiny_generator_config() if args.tiny else GeneratorConfig()
     generator = load_generator(args.checkpoint, config, device, args.seed)
     if anchors is None:

@@ -27,6 +27,7 @@ from multi_stylegan_torch.io.images import save_prediction
 from multi_stylegan_torch.io.reference import strip_prefixes
 from multi_stylegan_torch.models.config import GeneratorConfig, tiny_generator_config
 from multi_stylegan_torch.models.generator import Generator
+from multi_stylegan_torch.utils.precision import pin_f32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,6 +91,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     """Run the CLI; returns what it did (samples, seconds, finiteness)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    pin_f32()
     config = tiny_generator_config() if args.tiny else GeneratorConfig()
     generator = load_generator(args.checkpoint, config, device, args.seed)
     os.makedirs(args.output, exist_ok=True)

@@ -55,6 +55,7 @@ from multi_stylegan_torch.models.discriminator import Discriminator
 from multi_stylegan_torch.models.generator import Generator
 from multi_stylegan_torch.train.draws import TorchDraws
 from multi_stylegan_torch.train.loop import Trainer
+from multi_stylegan_torch.utils.precision import pin_f32
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -225,6 +226,7 @@ def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, 
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    pin_f32()
     print("Init models")
     generator, discriminator, cfg, dataset = build(args, device)
     cfg = dataclasses.replace(cfg, **(config_overrides or {}))

@@ -16,37 +16,48 @@ dtype, and the bias grad is the f32 row sum of that stored ``dx``.  Two
 * :class:`FusedLeakyReLUBackward` returns (dx, db); its own backward, given
   cotangents (gg_dx, gg_db), is the same masked scale applied to
   ``gg_dx + gg_db`` (the bias-sum's transpose broadcasts gg_db over the
-  rows) and zero for ``out``.  That is what R1 and path length
+  rows) and zero for ``out``: :class:`FusedLeakyReLUDoubleBackward`, one
+  dx-only K2 with gg_db as its addend.  That is what R1 and path length
   differentiate through.
 
 Each op has two versions: plain PyTorch (:func:`fused_leaky_relu_ref`,
 :func:`fused_leaky_relu_grad_ref`), which CPU tensors use and the kernels are
-held against, and a Triton kernel for CUDA tensors.  A CUDA tensor launches
-the kernel or raises; there is no fallback.
+held against, and a kernel for CUDA tensors.  A CUDA tensor launches the
+kernel or raises; there is no fallback.
 
 * K1 replaces ``multi_stylegan_tpu/ops/pallas_kernels.py::_flr_fwd_kernel``.
   It reads ``x`` once and writes ``y`` once (4 f32 operations per element
-  against 8 bytes): bound by bytes over the card's 3.35 TB/s.  One masked
-  ``[BLOCK_M, BLOCK_C]`` tile per program over the ``[M, C]`` view.
+  against 8 bytes): bound by bytes over the card's 3.35 TB/s.  A Triton
+  kernel, one masked ``[BLOCK_M, BLOCK_C]`` tile per program over the
+  ``[M, C]`` view.
 * K2 replaces ``pallas_kernels.py::_flr_grad_kernel`` together with the bias
-  sum of ``_flr_2d_bwd``.  It reads g and out and writes dx (plus a small
-  f32 partial-sum array): bound by bytes.  Each program walks ``ROW_ITERS``
-  row tiles of one column block, stores dx and keeps an f32 column sum in
-  registers, then writes one partial row; a second launch sums the partial
-  rows per column in a fixed order.  No atomics, so the bias grad is the
-  same bits run to run.
+  sum of ``_flr_2d_bwd``: the CUDA C++ kernel ``csrc/fused_act.cu`` (its
+  header says what bounds it and how), built by ``ops/cuda_build.py`` and
+  called through ``ctypes``.  One launch computes dx and the bias grad: a
+  persistent grid walks the rows with the column sums in registers, each
+  block writes one f32 partial row, and the last block to finish adds the
+  partial rows in a fixed order, so the bias grad is the same bits run to
+  run.  :func:`_grad_plan` sizes the grid.  A dx-only form, with an optional
+  f32 addend broadcast over the rows, serves the double backward.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
-# Launches of each Triton kernel since import (or since a caller reset them).
-# ``grad_launches`` counts one per K2 call (its column-sum pass included).
+from multi_stylegan_torch.ops import cuda_build
+
+# Launches of each kernel since import (or since a caller reset them):
+# ``launches`` for K1, ``grad_launches`` for K2 (one per call, either form),
+# ``grad_dx_only_launches`` for the K2 calls of the dx-only form.
 launches = 0
 grad_launches = 0
+grad_dx_only_launches = 0
 
 # Bound to ``triton.language`` at the first launch, so that importing this
 # module needs no triton (the kernel bodies read ``tl`` as a global).
@@ -69,12 +80,16 @@ def fused_leaky_relu_ref(
 
 def fused_leaky_relu_grad_ref(
     g: torch.Tensor, out: torch.Tensor, negative_slope: float = 0.2,
-    scale: float = math.sqrt(2.0),
+    scale: float = math.sqrt(2.0), addend: torch.Tensor = None, need_db: bool = True,
 ):
-    """Plain PyTorch gradient: (dx in g.dtype, f32 bias grad over the last axis)."""
+    """Plain PyTorch gradient: (dx in g.dtype, f32 bias grad over the last
+    axis, or None without ``need_db``).  An f32 ``addend`` [C] is rounded to
+    g's dtype and added to g first (the sum rounded to g's dtype too)."""
+    if addend is not None:
+        g = g + addend.to(g.dtype)
     gf = g.float()
     dx = (torch.where(out >= 0, gf, gf * negative_slope) * scale).to(g.dtype)
-    return dx, dx.float().reshape(-1, dx.shape[-1]).sum(0)
+    return dx, (dx.float().reshape(-1, dx.shape[-1]).sum(0) if need_db else None)
 
 
 def _forward(x, bias, negative_slope, scale):
@@ -86,13 +101,14 @@ def _forward(x, bias, negative_slope, scale):
     return _fused_leaky_relu_cuda(x, bias, float(negative_slope), float(scale))
 
 
-def _grad(g, out, negative_slope, scale):
+def _grad(g, out, negative_slope, scale, addend=None, need_db=True):
     """K2 on a CUDA tensor, the plain version on a CPU one."""
     if g.device.type == "cpu":
-        return fused_leaky_relu_grad_ref(g, out, negative_slope, scale)
+        return fused_leaky_relu_grad_ref(g, out, negative_slope, scale, addend, need_db)
     if g.device.type != "cuda":
         raise ValueError(f"fused_leaky_relu grad: unsupported device {g.device}")
-    return _fused_leaky_relu_grad_cuda(g, out, float(negative_slope), float(scale))
+    return _fused_leaky_relu_grad_cuda(g, out, float(negative_slope), float(scale),
+                                       addend, need_db)
 
 
 class FusedLeakyReLUFunction(torch.autograd.Function):
@@ -118,7 +134,9 @@ class FusedLeakyReLUBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, g, out, negative_slope, scale):
-        dx, db = _grad(g, out, negative_slope, scale)
+        # a cotangent may arrive in NCHW order (the flagship D's 16x16x1024
+        # map does, in R1): the kernel takes the forward output's layout
+        dx, db = _grad(g.contiguous(), out, negative_slope, scale)
         ctx.save_for_backward(out)
         ctx.consts = (negative_slope, scale)
         return dx, db
@@ -126,12 +144,32 @@ class FusedLeakyReLUBackward(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gg_dx, gg_db):
         (out,) = ctx.saved_tensors
-        negative_slope, scale = ctx.consts
-        # d(db)/dg broadcasts gg_db over the rows, and both terms share the
-        # masked scale: one K2 on their sum (its bias sum is not needed).
-        ggo, _ = FusedLeakyReLUBackward.apply(gg_dx + gg_db.to(gg_dx.dtype), out,
-                                              negative_slope, scale)
+        ggo = FusedLeakyReLUDoubleBackward.apply(gg_dx, gg_db, out, *ctx.consts)
         return ggo, None, None, None
+
+
+class FusedLeakyReLUDoubleBackward(torch.autograd.Function):
+    """K2's masked scale of ``gg_dx + gg_db`` (gg_db, f32 [C], broadcast over
+    the rows): d(db)/dg broadcasts gg_db, and both terms share the mask, so
+    one dx-only K2 with gg_db as its addend.  Its own backward is
+    :class:`FusedLeakyReLUBackward` (dx for gg_dx, the bias sum for gg_db)."""
+
+    @staticmethod
+    def forward(ctx, gg_dx, gg_db, out, negative_slope, scale):
+        # gg_dx may arrive in NCHW order (R1's double backward at four of the
+        # flagship D's maps) and gg_db as an expanded view: copy each to the
+        # layout the kernel takes
+        ggo, _ = _grad(gg_dx.contiguous(), out, negative_slope, scale, gg_db.contiguous(),
+                       need_db=False)
+        ctx.save_for_backward(out)
+        ctx.consts = (negative_slope, scale)
+        return ggo
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        dx, db = FusedLeakyReLUBackward.apply(g, out, *ctx.consts)
+        return dx, db, None, None, None
 
 
 def fused_leaky_relu(
@@ -150,7 +188,7 @@ def fused_leaky_relu(
 
 
 def _kernels():
-    """Build the Triton kernels at first use."""
+    """Build K1's Triton kernel at first use."""
     global _KERNELS, tl
     if _KERNELS is None:
         import triton
@@ -171,41 +209,7 @@ def _kernels():
             y = tl.where(y >= 0, y, y * slope) * scale
             tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-        @triton.jit
-        def flr_grad(g_ptr, o_ptr, dx_ptr, part_ptr, M, C, slope, scale,
-                     BLOCK_M: tl.constexpr, BLOCK_C: tl.constexpr,
-                     ROW_ITERS: tl.constexpr):
-            pid_m = tl.program_id(0)
-            cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-            col_ok = cols < C
-            acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-            for it in range(ROW_ITERS):
-                rows = (pid_m * ROW_ITERS + it) * BLOCK_M + tl.arange(0, BLOCK_M)
-                mask = (rows[:, None] < M) & col_ok[None, :]
-                offs = rows[:, None].to(tl.int64) * C + cols[None, :]
-                g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-                o = tl.load(o_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-                dx = (tl.where(o >= 0, g, g * slope) * scale).to(dx_ptr.dtype.element_ty)
-                tl.store(dx_ptr + offs, dx, mask=mask)
-                # the bias grad sums the stored dx (masked entries are 0)
-                acc += tl.sum(dx.to(tl.float32), axis=0)
-            tl.store(part_ptr + pid_m.to(tl.int64) * C + cols, acc, mask=col_ok)
-
-        @triton.jit
-        def col_sum(part_ptr, out_ptr, R, C, BLOCK_R: tl.constexpr,
-                    BLOCK_C: tl.constexpr):
-            cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
-            col_ok = cols < C
-            acc = tl.zeros([BLOCK_C], dtype=tl.float32)
-            for r0 in range(0, R, BLOCK_R):
-                rows = r0 + tl.arange(0, BLOCK_R)
-                mask = (rows[:, None] < R) & col_ok[None, :]
-                p = tl.load(part_ptr + rows[:, None].to(tl.int64) * C + cols[None, :],
-                            mask=mask, other=0.0)
-                acc += tl.sum(p, axis=0)
-            tl.store(out_ptr + cols, acc, mask=col_ok)
-
-        _KERNELS = (flr_fwd, flr_grad, col_sum)
+        _KERNELS = flr_fwd
     return _KERNELS
 
 
@@ -240,40 +244,141 @@ def _fused_leaky_relu_cuda(x, bias, negative_slope, scale):
     block_m = max(1, 4096 // block_c)
     grid = (-(-m // block_m), -(-c // block_c))
     with torch.cuda.device(x.device):
-        _kernels()[0][grid](x, bias, y, m, c, negative_slope, scale,
+        _kernels()[grid](x, bias, y, m, c, negative_slope, scale,
                             BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
     launches += 1
     return y
 
 
-def _fused_leaky_relu_grad_cuda(g, out, negative_slope, scale):
-    global grad_launches
-    g = g.contiguous()
+# K2's launch geometry, the constants of csrc/fused_act.cu (kThreads,
+# kLanes, kUnroll, kBlocksPerSm: the persistent grid's blocks a SM).
+_THREADS = 256
+_LANES = 32
+_UNROLL = 4
+_BLOCKS_PER_SM = 3
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte vector
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_LIB = None
+_SM_COUNT = {}  # device index -> multiprocessors
+_SCRATCH = {}  # (device index, stream) -> (f32 partial rows, uint32 tickets)
+
+
+class GradPlan(NamedTuple):
+    """One K2 launch: the 16-byte vector form or the scalar one, the column
+    threads a row (``lanes``), the grid (row blocks, column slices), the
+    rows each row block walks, and the f32 partial rows of the bias sum (0
+    when one row block writes db itself, or in the dx-only form),
+    ``partial_rows * C`` floats of scratch."""
+
+    vector: bool
+    lanes: int
+    grid: Tuple[int, int]
+    rows_per_block: int
+    partial_rows: int
+    scratch_floats: int
+
+
+@functools.lru_cache(maxsize=1024)
+def _grad_plan(m: int, c: int, dtype: torch.dtype, aligned: bool, sm_count: int,
+               need_db: bool) -> GradPlan:
+    """K2's launch on an ``[m, c]`` view: the vector form where C is a
+    multiple of the 16-byte vector and g, out and dx are 16-byte
+    ``aligned``; column slices one warp wide (32 vectors, or 32 columns in
+    the scalar form), or a power of two narrower where a row holds fewer
+    vectors (a warp then spans several rows); ``_BLOCKS_PER_SM`` blocks a SM
+    in all, never fewer than one row per thread and unrolled step
+    (``_UNROLL * _THREADS / lanes`` rows) a block, each walking one
+    contiguous run of rows.  The C side re-checks the plan."""
+    vector = aligned and c % _VEC[dtype] == 0
+    vec = _VEC[dtype] if vector else 1
+    lanes = min(_LANES, 1 << (-(-c // vec) - 1).bit_length())
+    slices = -(-c // (lanes * vec))
+    if slices > 65535:
+        raise ValueError(f"fused_leaky_relu grad: {c} channels exceed the kernel's grid")
+    blocks = max(1, min(-(-_BLOCKS_PER_SM * sm_count // slices),
+                        m // (_UNROLL * _THREADS // lanes)))
+    rows = -(-m // blocks)
+    blocks = -(-m // rows)
+    partial_rows = blocks if need_db and blocks > 1 else 0
+    return GradPlan(vector, lanes, (blocks, slices), rows, partial_rows, partial_rows * c)
+
+
+# flr_grad's arguments: g, out, addend, dx, db, partials, tickets; M, C,
+# slope, scale; dtype, vector, lanes, grid_x; rows_per_block, stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                                      ctypes.c_float] + [ctypes.c_int] * 4
+             + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(cuda_build.build("fused_act")))
+        fn = lib.flr_grad
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SM_COUNT.get(device.index)
+    if n is None:
+        n = _SM_COUNT[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _scratch(device: torch.device, stream, floats: int, slices: int):
+    """The stream's partial rows (at least ``floats``) and tickets (at least
+    ``slices``, zero between launches: the last block resets its own).
+    Cached per device and stream, grown on demand: launches on one stream
+    run in order, so they may share them; two streams never do."""
+    key = (device.index, stream.cuda_stream)
+    partials, tickets = _SCRATCH.get(key, (None, None))
+    if partials is None or partials.numel() < floats:
+        partials = torch.empty(max(floats, 1 << 16), dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < slices:
+        tickets = torch.zeros(max(slices, 64), dtype=torch.int32, device=device)
+    _SCRATCH[key] = (partials, tickets)
+    return partials, tickets
+
+
+def _fused_leaky_relu_grad_cuda(g, out, negative_slope, scale, addend=None, need_db=True):
+    global grad_launches, grad_dx_only_launches
     m, c = _check_2d("fused_leaky_relu grad", g)
-    if out.shape != g.shape or out.device != g.device or not out.is_contiguous():
+    if (out.shape != g.shape or out.dtype != g.dtype or out.device != g.device
+            or not out.is_contiguous()):
         raise ValueError(
-            f"fused_leaky_relu grad: out must be a contiguous {tuple(g.shape)} "
-            f"tensor on {g.device}, got {tuple(out.shape)} on {out.device}")
-    _check_2d("fused_leaky_relu grad (out)", out)
+            f"fused_leaky_relu grad: out must be a contiguous {g.dtype} {tuple(g.shape)} "
+            f"tensor on {g.device}, got {out.dtype} {tuple(out.shape)} on {out.device}")
+    if addend is not None and (addend.shape != (c,) or addend.dtype != torch.float32
+                               or addend.device != g.device or not addend.is_contiguous()):
+        raise ValueError(
+            f"fused_leaky_relu grad: the addend must be a contiguous f32 [{c}] tensor on "
+            f"{g.device}, got {addend.dtype} {tuple(addend.shape)} on {addend.device}")
+    device = g.device
     dx = torch.empty_like(g)
-    block_c = min(_next_pow2(c), 256)
-    block_m = max(1, 4096 // block_c)
-    # up to 8 row tiles per program, so the partial sums stay a few MB at the
-    # big sites, but never fewer than ~1k row programs: a small M walked 8
-    # tiles deep leaves most SMs idle (24x16x16x1024 ran 4x its plain version)
-    row_iters = max(1, min(8, -(-m // block_m) // 1024))
-    n_prog_m = -(-m // (block_m * row_iters))
-    partials = torch.empty((n_prog_m, c), dtype=torch.float32, device=g.device)
-    db = torch.empty((c,), dtype=torch.float32, device=g.device)
-    flr_grad, col_sum = _kernels()[1:]
-    with torch.cuda.device(g.device):
-        flr_grad[(n_prog_m, -(-c // block_c))](
-            g, out, dx, partials, m, c, negative_slope, scale,
-            BLOCK_M=block_m, BLOCK_C=block_c, ROW_ITERS=row_iters, num_warps=4)
-        sum_c = min(_next_pow2(c), 128)
-        col_sum[(-(-c // sum_c),)](partials, db, n_prog_m, c,
-                                   BLOCK_R=32, BLOCK_C=sum_c, num_warps=4)
+    db = torch.empty((c,), dtype=torch.float32, device=device) if need_db else None
+    aligned = (g.data_ptr() | out.data_ptr() | dx.data_ptr()) % 16 == 0
+    plan = _grad_plan(m, c, g.dtype, aligned, _sm_count(device), bool(need_db))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device)
+        partials = tickets = None
+        if plan.partial_rows:
+            partials, tickets = _scratch(device, stream, plan.scratch_floats, plan.grid[1])
+        rc = _library().flr_grad(
+            g.data_ptr(), out.data_ptr(), None if addend is None else addend.data_ptr(),
+            dx.data_ptr(), None if db is None else db.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            m, c, negative_slope, scale, _DTYPE_CODES[g.dtype], int(plan.vector), plan.lanes,
+            plan.grid[0], plan.rows_per_block, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_leaky_relu grad kernel launch failed: cudaError {rc}")
     grad_launches += 1
+    if not need_db:
+        grad_dx_only_launches += 1
     return dx, db
 
 

@@ -12,13 +12,15 @@ draws were made once before the first try, so every tier computes the same
 update.  A tier that ran stays the active one for later updates.
 
 When every tier has failed, the update is skipped with a warning, from then
-on, as the JAX Trainer does (it never moves to the CPU).  The G parameters
-and the running mean then stay as they were, but the EMA still follows:
-the main step left it to this update.  The step's metrics say which tier
-ran (``path_length_chunks``, the chunk count; 0 when none ran) and whether
-the due update was skipped (``path_length_skipped``); a tier change is
-printed.  The JAX ladder's compile-helper workarounds have no counterpart:
-nothing is compiled here.
+on, as the JAX Trainer does (it never moves to the CPU).  The state then
+stays as it was: the G parameters, the running mean and the EMA, which the
+main step left to this update (the JAX Trainer's skipped step returns its
+state unchanged, robust.py:183-186, after a main step without the EMA,
+loop.py:359).  The step's metrics say which tier ran
+(``path_length_chunks``, the chunk count; 0 when none ran) and whether the
+due update was skipped (``path_length_skipped``); a tier change is printed.
+The JAX ladder's compile-helper workarounds have no counterpart: nothing is
+compiled here.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from multi_stylegan_torch.train.ema import ema_update
 from multi_stylegan_torch.train.state import TrainState
 
 
@@ -84,6 +85,9 @@ class RobustPathLength:
 
     def __call__(self, state: TrainState, draws) -> Tuple[torch.Tensor, torch.Tensor,
                                                           Dict[str, torch.Tensor]]:
+        """One path-length update (draws, grads through the ladder, G step,
+        EMA); once every tier has failed it is skipped: penalty and length
+        0, and the G parameters, the running mean and the EMA as they were."""
         step = self.step
         out = self.grads(state, step.draw_path_length(state.generator, step.cfg.batch_size, draws))
         dev = state.mean_path_length.device
@@ -93,7 +97,6 @@ class RobustPathLength:
             return pen, pl, {
                 "path_length_chunks": torch.tensor(float(self.chunks), device=dev),
                 "path_length_skipped": torch.zeros((), device=dev)}
-        ema_update(state.g_ema, state.generator, step.cfg.ema_decay)
         zero = torch.zeros((), device=dev)
         return zero, zero, {"path_length_chunks": zero,
                             "path_length_skipped": torch.ones((), device=dev)}

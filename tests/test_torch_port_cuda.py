@@ -6,6 +6,8 @@ machine with an NVIDIA GPU (JAX is not needed there):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -102,6 +104,77 @@ def test_fused_leaky_relu_grad_kernel_matches_plain_autograd(cuda, shape, dtype)
     (rggy,) = torch.autograd.grad((rdx.float() * c1).sum() + (rdb * c2).sum(), gr)
     assert fused_act.grad_launches == before + 2
     torch.testing.assert_close(ggy, rggy, **TOL[dtype])
+
+
+# (shape, storage offset in elements): the vector form at C = 512 / 1024,
+# the scalar form at C = 130 and on a view 2 elements off 16-byte alignment
+K2_FORMS = [((24, 512), 0), ((6, 15, 15, 768), 0), ((1000, 130), 0),
+            ((4, 33, 7, 1024), 0), ((3, 9, 9, 256), 2)]
+
+
+def _k2_inputs(cuda, shape, offset, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = math.prod(shape)
+    grad = torch.randn(n + offset, generator=g, device=cuda).to(dtype)[offset:].view(shape)
+    out = torch.randn(n + offset, generator=g, device=cuda).to(dtype)[offset:].view(shape)
+    addend = torch.randn(shape[-1], generator=g, device=cuda)
+    return grad, out, addend
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", K2_FORMS)
+def test_fused_leaky_relu_grad_dx_only_and_addend_forms(cuda, shape, offset, dtype):
+    """K2's dx-only form with an f32 addend is bitwise the plain version
+    (which rounds the addend and the sum to g's dtype, as gg_dx +
+    gg_db.to(dtype) does); the full form with an addend gives the plain
+    version's dx bitwise and its bias sum up to the f32 summation order."""
+    grad, out, addend = _k2_inputs(cuda, shape, offset, dtype, 3)
+    counts = (fused_act.grad_launches, fused_act.grad_dx_only_launches)
+    dx, db = fused_act._grad(grad, out, 0.2, 2.0 ** 0.5, addend, need_db=False)
+    assert db is None
+    assert (fused_act.grad_launches, fused_act.grad_dx_only_launches) == (counts[0] + 1,
+                                                                         counts[1] + 1)
+    rdx, _ = fused_act.fused_leaky_relu_grad_ref(grad, out, 0.2, 2.0 ** 0.5, addend,
+                                                 need_db=False)
+    torch.testing.assert_close(dx, rdx, rtol=0, atol=0)
+    assert torch.equal(dx, fused_act.fused_leaky_relu_grad_ref(
+        grad + addend.to(dtype), out, 0.2, 2.0 ** 0.5)[0])
+    dx, db = fused_act._grad(grad, out, 0.2, 2.0 ** 0.5, addend)
+    rdx, rdb = fused_act.fused_leaky_relu_grad_ref(grad, out, 0.2, 2.0 ** 0.5, addend)
+    torch.testing.assert_close(dx, rdx, rtol=0, atol=0)
+    torch.testing.assert_close(db, rdb, rtol=1e-5, atol=1e-5 * max(1.0, float(rdb.abs().max())))
+    dx, _ = fused_act._grad(grad, out, 0.2, 2.0 ** 0.5, need_db=False)
+    torch.testing.assert_close(dx, fused_act.fused_leaky_relu_grad_ref(
+        grad, out, 0.2, 2.0 ** 0.5)[0], rtol=0, atol=0)
+
+
+def test_fused_leaky_relu_grad_refuses_what_it_does_not_take(cuda):
+    """K2 raises rather than copies: a non-contiguous cotangent, an output of
+    another dtype, an addend that is not a contiguous f32 [C]."""
+    grad, out, addend = _k2_inputs(cuda, (2, 8, 8, 64), 0, torch.float32, 5)
+    with pytest.raises(ValueError, match="channel axis"):
+        fused_act._grad(grad.transpose(1, 2), out, 0.2, 1.0)
+    with pytest.raises(ValueError, match="out must be"):
+        fused_act._grad(grad, out.bfloat16(), 0.2, 1.0)
+    with pytest.raises(ValueError, match="addend"):
+        fused_act._grad(grad, out, 0.2, 1.0, addend[:32], need_db=False)
+    with pytest.raises(ValueError, match="addend"):
+        fused_act._grad(grad, out, 0.2, 1.0, addend.bfloat16(), need_db=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(24, 64, 64, 512), (24, 256, 256, 128), (1000, 130)])
+def test_fused_leaky_relu_grad_bias_sum_is_the_same_bits_every_launch(cuda, shape, dtype):
+    """The bias sum runs over several row blocks and the last one adds their
+    partial rows in a fixed order: two launches give the same bits."""
+    grad, out, _ = _k2_inputs(cuda, shape, 0, dtype, 4)
+    assert fused_act._grad_plan(math.prod(shape[:-1]), shape[-1], dtype, True,
+                                fused_act._sm_count(grad.device), True).partial_rows > 1
+    _, db1 = fused_act._grad(grad, out, 0.2, 1.0)
+    _, db2 = fused_act._grad(grad, out, 0.2, 1.0)
+    assert torch.equal(db1, db2)
+    _, rdb = fused_act.fused_leaky_relu_grad_ref(grad, out, 0.2, 1.0)
+    torch.testing.assert_close(db1, rdb, rtol=1e-5, atol=1e-5 * max(1.0, float(rdb.abs().max())))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
