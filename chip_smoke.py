@@ -67,17 +67,21 @@ beside it.  Phases, each raising on failure:
               parameters and 4 times the unchunked update's launches.
 7. train_run - the training CLI's whole run at the flagship config: a TLFM
               tree of 16-bit TIFFs written here (48 sequences), trap weights,
-              3 epochs (6 steps; trap weights from epoch 1, wrong order in
-              epoch 2, its start moved from 0.75 to 0.5 of the run), the sample
+              2 epochs (4 steps; trap weights and wrong order in epoch 1,
+              wrong order's start moved from 0.75 to 0.5 of the run), the sample
               grids and a checkpoint every epoch, FID / FVD / IS once at the
               end (48 samples, random-weight nets read from files through
               ``MSG_TPU_INCEPTION_PT`` / ``MSG_TPU_I3D_PT``), a
-              torch.profiler trace of steps 2-5; then a resume for one more
-              epoch (steps 7-8) from the checkpoint.  Fails on a non-finite
+              torch.profiler trace of steps 2-4 (the run's last); then a
+              resume for one more epoch (steps 5-6) from the checkpoint.  Fails on a non-finite
               loss or score, a failed save, a missing PNG / metric file, a
               restored state not bitwise the saved one, a batch-15 grid site
               on upfirdn2d's general form (C = 3 aside), or two grid samples
-              off the CPU's by more than ``SAMPLE_TOL``.
+              off the CPU's by more than ``SAMPLE_TOL``.  Each host Frechet
+              distance of the validation is also taken on the card
+              (``eval/frechet.py::frechet_distance_device``, Newton-Schulz):
+              both values, both times and their gap (``frechet`` line), and
+              the device one's time on full-rank activations of 5000 x 2048.
 8. reference - phase 4b's checkpoint through ``cli.export`` into the
               reference's 6-key ``.pt`` and back through ``cli.convert``,
               bitwise the source for all the format carries; the training
@@ -88,6 +92,24 @@ beside it.  Phases, each raising on failure:
               launches of three forwards, the upfirdn2d variant of each
               batch-32 site, and two rows of the CLI's own first batch
               against the CPU's images of the latents the CLI fed them.
+10. ddp     - two ranks (spawned, gloo: they share the one card) run phase 4's
+              f32 iteration at global batch 24, 12 rows each, from its
+              seed-made state, draws and batch, the path length through the
+              Trainer's ladder; held against the same iteration in one
+              process (run first and freed): every update's summed gradient
+              within ``GRAD_TOL`` of its peak, the metrics within 1e-3
+              relative, the ranks' states the same bits, each rank's K1-K4
+              launches the one-process iteration's.  Per rank: launches,
+              peak memory, the ladder's tier, each sub-step's seconds and
+              its all-reduces' seconds.
+11. ddp_cli - ``cli.train --devices 2`` at the tiny config (two ranks on the
+              card): 2 epochs with a checkpoint each, then a resume of the
+              first for 1 epoch on 2 ranks; one writer, the resume bitwise
+              the uninterrupted run, every kernel launched on every rank.
+12. teacher - ``tools/stability_run.py``: the teacher fixture, flagship
+              config, bf16, batch 16, 17 steps through ``Trainer.train``
+              (the lazy R1 and path length at step 16), a checkpoint at
+              step 8 restored into other weights; every metric finite.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
 of upfirdn2d the launch took; K2 has a line per form), one ``edge`` line
@@ -99,7 +121,8 @@ one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 In the kernels line ``launches`` sums the main-path runs (sampling CLI,
 training CLI, the f32 and bf16 iterations, the sequential + fft main step,
 the path-length ladder's update, the training run with its resume, the
-training and sampling CLIs of phase 8, the interpolation CLI), each counted
+training and sampling CLIs of phase 8, the interpolation CLI, both ranks of
+phase 10, every rank of phase 11's two runs, the teacher run), each counted
 from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
 per f32 regularised training iteration at batch 24: each training call
 site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
@@ -1303,7 +1326,7 @@ def phase_train_parity(seed: int) -> dict:
 # --------------------------------------------------------------- train run
 
 
-TRAIN_RUN_EPOCHS = 3
+TRAIN_RUN_EPOCHS = 2  # PR 7: from 3, for the slice-7 phases' time
 TRAIN_RUN_SAMPLES = 48  # FID / FVD / IS samples here; the protocol takes 5000
 PROTOCOL_SAMPLES = 5000
 GRID_BATCH = 15  # the fixed validation latents of the sample grids
@@ -1474,7 +1497,7 @@ def phase_train_run(seed: int, iteration_ops: list):
         # scipy's sqrtm of two 2048 x 2048 products on the host, and four of
         # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W); the
         # last epoch runs the wrong-order schedule (its default start, 0.75
-        # of the epochs, falls after epoch 2 of 3)
+        # of the epochs, falls after epoch 1 of 2)
         overrides = dict(checkpoint_every_n_epochs=1, validate_every_n_epochs=TRAIN_RUN_EPOCHS,
                          wrong_order_start=0.5)
         orders, orig_main_step = [], TrainStep.main_step
@@ -1485,18 +1508,26 @@ def phase_train_run(seed: int, iteration_ops: list):
         timer = MethodTimer((Trainer, "_save_sample_grids"), (Trainer, "save_checkpoint"),
                             (metrics.FID, "__call__"), (metrics.FVD, "__call__"),
                             (metrics.IS, "__call__"))
+        # each host Frechet distance of the validation, with its inputs
+        fd_calls, host_fd = [], metrics.frechet_distance
+
+        def recorded_fd(real, fake):
+            t0 = time.perf_counter()
+            value = host_fd(real, fake)
+            fd_calls.append((real, fake, value, time.perf_counter() - t0))
+            return value
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         with warnings.catch_warnings(record=True) as caught, timer, BatchVariants(GRID_BATCH) as grids:
             warnings.simplefilter("always")
-            TrainStep.main_step = main_step
+            TrainStep.main_step, metrics.frechet_distance = main_step, recorded_fd
             try:
                 zero_counts()
                 run = train.main(common + ["--epochs", str(TRAIN_RUN_EPOCHS), "--profile_dir", prof],
                                  config_overrides=overrides, validation_samples=TRAIN_RUN_SAMPLES)
                 counts = read_counts()
             finally:
-                TrainStep.main_step = orig_main_step
+                TrainStep.main_step, metrics.frechet_distance = orig_main_step, host_fd
         peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
         trainer = run["trainer"]
         failed_saves = [str(w.message) for w in caught if "save failed" in str(w.message)]
@@ -1550,6 +1581,8 @@ def phase_train_run(seed: int, iteration_ops: list):
         if trainer.trace is None or trainer.trace.path is None:
             raise AssertionError("no profiler trace of steps 2-5")
         top_ops = trainer.trace.top_device_ops(15)
+        frechet = frechet_rows(fd_calls)
+        print("frechet", json.dumps(frechet), flush=True)
         saved = host_snapshot(trainer)
         ckpt_mb = os.path.getsize(trainer.ckpt.path(steps)) / 2**20
         history = run["history"]
@@ -1610,7 +1643,7 @@ def phase_train_run(seed: int, iteration_ops: list):
         "peak_memory_gib": peak, "launches": counts, "resume_launches": resume_counts,
         "grid_sites": {str(k): v for k, v in grids.seen.items()},
         "grid_sample_max_abs_err": grid_err, "grid_sample_peak": grid_peak,
-        "top_device_ops_steps_2_5": top_ops,
+        "top_device_ops_steps_2_5": top_ops, "frechet": frechet,
         "top_device_ops_regularised_iteration": iteration_ops,
     }
     print("train_run", json.dumps(row), flush=True)
@@ -1951,6 +1984,372 @@ def phase_interpolate(seed: int, pt: str, work: str):
     return counts, row
 
 
+# ----------------------------------------------------------------- slice 7
+
+DDP_WORLD = 2
+
+
+def ddp_iteration(seed: int, repeat: bool = False) -> dict:
+    """Phase train_iteration's f32 regularised iteration (its seed-made
+    state, draws and batch of 24) as this process's rank: this rank's rows of
+    the global batch and of every draw, the path length through the
+    Trainer's ladder.  Returns the state, every update's gradients (device
+    copies), the metrics, each sub-step's seconds and the seconds of its
+    all-reduces, the ladder's tier, the launches and the peak memory; with
+    ``repeat`` also the seconds of a second iteration on the updated state
+    (a new process's first one builds Triton's kernels and picks cuDNN's
+    algorithms)."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_stylegan_torch.io.checkpoint import train_state_dict
+    from multi_stylegan_torch.models.config import TrainingConfig
+    from multi_stylegan_torch.parallel import mesh
+    from multi_stylegan_torch.train.draws import ShardDraws, TorchDraws
+    from multi_stylegan_torch.train.robust import RobustPathLength
+    from multi_stylegan_torch.train.state import create_train_state
+    from multi_stylegan_torch.train.steps import StepFlags, TrainStep
+
+    (gcfg, dcfg), cfg = train_configs(), TrainingConfig()
+    gen = random_generator(gcfg, seed + 10).train().to(DEVICE)
+    disc = random_discriminator(dcfg, seed + 11).to(DEVICE)
+    state = create_train_state(gen, disc, cfg)
+    mesh.broadcast_state(train_state_dict(state))  # as the Trainer starts
+    ts = TrainStep(cfg, top_k_start_iteration=0, top_k_final_iteration=2)
+    draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(seed + 12))
+    if mesh.world() > 1:
+        draws = ShardDraws(draws)
+    real = mesh.shard(real_batch(TRAIN_BATCH, gcfg.resolution, seed + 13)).to(DEVICE)
+    ladder = RobustPathLength(ts)
+    flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
+    updates, record, seconds, reduce_s, current = [], [True], {}, {}, [None]
+
+    for opt in (state.d_opt, state.g_opt):
+        def step(grads, _step=opt.step):
+            if record[0]:
+                updates.append([None if g is None else g.detach().clone() for g in grads])
+            return _step(grads)
+        opt.step = step
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            current[0], reduce_s[name] = name, 0.0
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            seconds[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    orig_all_reduce = dist.all_reduce
+
+    def all_reduce(*a, **kw):  # host seconds of every collective, the device idle
+        sync()
+        t0 = time.perf_counter()
+        try:
+            return orig_all_reduce(*a, **kw)
+        finally:
+            sync()
+            reduce_s[current[0]] += time.perf_counter() - t0
+
+    def iterate():
+        metrics = ts.main_step(state, real, flags, draws)
+        metrics["loss_discriminator_regularization"] = timed("r1_update", ts.r1_update)(state, real)
+        pen, pl, pl_metrics = timed("path_length_update", ladder)(state, draws)
+        metrics.update(loss_path_length_regularization=pen, path_length=pl, **pl_metrics)
+        return {k: float(v) for k, v in metrics.items()}
+
+    for name in ("d_step", "cut_mix_step", "g_step"):
+        setattr(ts, name, timed(name, getattr(ts, name)))
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dist.all_reduce = all_reduce
+    try:
+        zero_counts()
+        metrics = iterate()
+        counts = read_counts()
+        out = {"seconds": dict(seconds), "all_reduce_s": dict(reduce_s)}
+        if repeat:
+            record[0] = False
+            iterate()
+            out.update(warm_seconds=dict(seconds), warm_all_reduce_s=dict(reduce_s))
+    finally:
+        dist.all_reduce = orig_all_reduce
+    out.update(state=state, updates=updates, metrics=metrics, tier=ladder.chunks, launches=counts,
+               peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
+                                if DEVICE == "cuda" else None))
+    return out
+
+
+def ranks_bitwise_equal(state) -> bool:
+    """Every tensor of the training state the same bits on every rank:
+    rank 0's bytes broadcast and compared."""
+    import torch
+    import torch.distributed as dist
+
+    from multi_stylegan_torch.io.checkpoint import train_state_dict
+    from multi_stylegan_torch.parallel import mesh
+
+    mine = torch.cat([t.detach().reshape(-1).contiguous().view(torch.uint8)
+                      for t in mesh.tensors_of(train_state_dict(state))])
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=0)
+    return not mesh.any_rank(not torch.equal(mine, theirs), mine.device)
+
+
+def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str) -> None:
+    """One rank of phase ddp (spawned): the iteration, the bitwise check;
+    rank 0 writes its gradients, every rank its summary."""
+    import torch
+
+    from multi_stylegan_torch.parallel import mesh
+    from multi_stylegan_torch.utils.precision import pin_f32
+
+    pin_f32()
+    device = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
+    backend = mesh.init(world, rank, init_method, device, shares_card=True)
+    try:
+        run = ddp_iteration(seed, repeat=True)
+        summary = {k: run[k] for k in ("metrics", "seconds", "all_reduce_s", "warm_seconds",
+                                       "warm_all_reduce_s", "tier", "launches", "peak_memory_gib")}
+        summary.update(backend=backend, bitwise_equal=ranks_bitwise_equal(run["state"]))
+        if rank == 0:
+            torch.save([[None if g is None else g.cpu() for g in u] for u in run["updates"]],
+                       os.path.join(out, "updates.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(summary, f)
+    finally:
+        mesh.shutdown()
+
+
+def phase_ddp(seed: int, iteration_counts: dict) -> tuple:
+    """Two ranks on the one card (gloo) run phase train_iteration's f32
+    iteration at global batch 24 (12 rows each), held against the same
+    iteration in one process (run here first and freed before the ranks
+    start): every update's summed gradient within GRAD_TOL of its peak, the
+    metrics within 1e-3 relative, the ranks' states the same bits after it
+    and a second, timed iteration, and each rank's K1-K4 launches in the
+    first those of the one-process iteration."""
+    import torch
+
+    ref = ddp_iteration(seed)
+    ref_updates = [[None if g is None else g.cpu() for g in u] for u in ref["updates"]]
+    ref_row = {k: ref[k] for k in ("seconds", "tier", "launches", "peak_memory_gib")}
+    ref_metrics = ref["metrics"]
+    del ref
+    empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ddp_") as out:
+        t0 = time.perf_counter()
+        torch.multiprocessing.start_processes(
+            ddp_rank, args=(DDP_WORLD, f"file://{os.path.join(out, 'rendezvous')}", seed, out),
+            nprocs=DDP_WORLD, join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = torch.load(os.path.join(out, "updates.pt"), mmap=True, weights_only=True)
+        if len(got) != 6 or len(ref_updates) != 6:
+            raise AssertionError(f"ddp: {len(got)} updates, one process {len(ref_updates)}")
+        errors = []
+        for k, (a, b) in enumerate(zip(got, ref_updates)):
+            if [g is None for g in a] != [g is None for g in b]:
+                raise AssertionError(f"ddp update {k}: other parameters got gradients")
+            pairs = [(x, y) for x, y in zip(a, b) if y is not None]
+            peak, err = flat_max(y for _, y in pairs), flat_max(x - y for x, y in pairs)
+            errors.append({"max_abs_err": err, "peak": peak})
+            if not (math.isfinite(err) and peak > 0 and err <= GRAD_TOL * peak):
+                raise AssertionError(f"ddp update {k}: max abs err {err}, peak {peak}")
+        del got
+    metric_err = {k: abs(ranks[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                  for k, v in ref_metrics.items() if abs(ranks[0]["metrics"][k] - v) > 0}
+    row = {"world": DDP_WORLD, "wall_s": wall, "one_process": ref_row, "ranks": ranks,
+           "update_errors": errors, "metric_rel_errors": metric_err}
+    print("ddp", json.dumps(row), flush=True)
+    if any(e > 1e-3 for e in metric_err.values()):
+        raise AssertionError(f"ddp metrics off the one-process ones: {metric_err}")
+    for r, rank in enumerate(ranks):
+        if not rank["bitwise_equal"] or rank["tier"] != 1 or rank["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"ddp rank {r}: equal={rank['bitwise_equal']}, tier {rank['tier']}")
+        if rank["launches"] != iteration_counts or ref_row["launches"] != iteration_counts:
+            raise AssertionError(f"ddp rank {r} launches {rank['launches']}, one process "
+                                 f"{ref_row['launches']}, phase train_iteration {iteration_counts}")
+    empty_cache()
+    return {k: sum(rank["launches"][k] for rank in ranks) for k in KERNELS}, row
+
+
+COUNTS_DIR_ENV = "CHIP_SMOKE_COUNTS_DIR"
+
+
+def counted_rank_main(rank: int, *args):
+    """The training CLI's rank entry (``cli/train.py::_rank_main``), and into
+    the directory ``COUNTS_DIR_ENV`` names this rank's K1-K4 launches,
+    whether each checkpoint it restored came back bit for bit (its training
+    state and the draws' state), and a digest of its final state (phase
+    ddp_cli puts it in the CLI's place)."""
+    import hashlib
+
+    import torch
+
+    from multi_stylegan_torch.cli import train
+    from multi_stylegan_torch.io.checkpoint import train_state_dict
+    from multi_stylegan_torch.parallel import mesh
+    from multi_stylegan_torch.train.loop import Trainer
+
+    restored, load = [], Trainer.load_payload
+
+    def load_payload(self, saved):
+        load(self, saved)
+        mine = mesh.tensors_of(train_state_dict(self.state))
+        theirs = mesh.tensors_of(saved["train_state"])
+        restored.append(len(mine) == len(theirs)
+                        and all(torch.equal(a.cpu(), b) for a, b in zip(mine, theirs))
+                        and torch.equal(self.draws.generator.get_state(), saved["draws"]))
+    Trainer.load_payload = load_payload
+    zero_counts()
+    run = train._rank_main(rank, *args)
+    counts = read_counts()
+    digest = hashlib.sha256()
+    for t in mesh.tensors_of(train_state_dict(run["state"])):
+        digest.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    with open(os.path.join(os.environ[COUNTS_DIR_ENV], f"rank{rank}.json"), "w") as f:
+        json.dump({"launches": counts, "restored_bitwise": restored,
+                   "state_sha256": digest.hexdigest()}, f)
+    return run
+
+
+def run_to_file(log: str, fn, *a, **kw):
+    """``fn(*a, **kw)`` with file descriptor 1 (spawned ranks' too) in ``log``."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    try:
+        with open(log, "w") as f:
+            os.dup2(f.fileno(), 1)
+            return fn(*a, **kw)
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def phase_ddp_cli(seed: int) -> tuple:
+    """``cli.train --devices 2`` at the tiny config on the card (two ranks
+    sharing it over gloo; ``--resume_training`` turns wrong order and
+    cut-mix on): 2 epochs of 4 steps with one checkpoint at the end, then a
+    resume from it for 1 epoch on 2 ranks.  One writer (each step reported
+    once, the one checkpoint and nothing else), every rank's restored state
+    the checkpoint's bits, the ranks replicas at the end of each run (one
+    state digest), every kernel launched on every rank.  (Two runs of the
+    same steps on the card are not bitwise one another: the ADA warp's
+    adjoint adds with atomics.)"""
+    import shutil
+
+    from multi_stylegan_torch.cli import train
+
+    tmp = tempfile.mkdtemp(prefix="ddp_cli_")
+    base = ["--tiny", "--synthetic", "--device", DEVICE, "--devices", str(DDP_WORLD),
+            "--batch_size", "16", "--seed", str(seed), "--resume_training",
+            "--no_validation_metrics"]
+    runs, ranks = {}, {}
+    orig, train._rank_main = train._rank_main, counted_rank_main
+    try:
+        for name, argv, epochs in (("first", [], 2), ("resumed", [
+                "--load_checkpoint", os.path.join(tmp, "first", "models")], 1)):
+            counts_dir = os.environ[COUNTS_DIR_ENV] = os.path.join(tmp, f"{name}_counts")
+            os.makedirs(counts_dir)
+            t0 = time.perf_counter()
+            runs[name] = run_to_file(os.path.join(tmp, f"{name}.log"), train.main, base + argv + [
+                "--epochs", str(epochs), "--experiment_path", os.path.join(tmp, name)],
+                config_overrides={"checkpoint_every_n_epochs": 2})
+            runs[name]["wall_s"] = time.perf_counter() - t0
+            ranks[name] = []
+            for r in range(DDP_WORLD):
+                with open(os.path.join(counts_dir, f"rank{r}.json")) as f:
+                    ranks[name].append(json.load(f))
+        with open(os.path.join(tmp, "first.log")) as f:
+            log = f.read()
+        models = sorted(os.listdir(os.path.join(tmp, "first", "models")))
+    finally:
+        train._rank_main = orig
+        os.environ.pop(COUNTS_DIR_ENV, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, resumed = runs["first"], runs["resumed"]
+    row = {"first_s": first["wall_s"], "resumed_s": resumed["wall_s"],
+           "step_s": [m["seconds"] for m in first["history"] + resumed["history"]],
+           "models": models, "ranks": ranks}
+    print("ddp cli", json.dumps(row), flush=True)
+    reports = [log.count(f"step {s}:") for s in range(1, 9)]
+    if (first["steps"] != 8 or resumed["steps"] != 4 or not first["finite"]
+            or not resumed["finite"] or reports != [1] * 8 or log.count("Start training") != 1
+            or models != ["checkpoint_8.pt"]):
+        raise AssertionError(f"ddp cli: steps {first['steps']}/{resumed['steps']}, reports "
+                             f"{reports}, models {models}")
+    for name, rs in ranks.items():
+        want_restored = [True] if name == "resumed" else []
+        if (any(r["restored_bitwise"] != want_restored for r in rs)
+                or len({r["state_sha256"] for r in rs}) != 1
+                or not all(all(r["launches"].values()) for r in rs)):
+            raise AssertionError(f"ddp cli {name} run's ranks: {rs}")
+    return {k: sum(r["launches"][k] for rs in ranks.values() for r in rs) for k in KERNELS}, row
+
+
+def phase_teacher(seed: int, work: str) -> tuple:
+    """``tools/stability_run.py`` at the flagship config, bf16, batch 16,
+    on the teacher fixture, for 17 steps through ``Trainer.train`` (the lazy
+    R1 and path length inside the loop at step 16), checkpointed at step 8
+    and restored into other weights: every metric finite, the steps'
+    seconds."""
+    from multi_stylegan_torch.tools import stability_run
+
+    zero_counts()
+    report = stability_run.main(CONFIG_ARGS + [
+        "--steps", "17", "--batch", "16", "--dtype", "bfloat16", "--fixture", "teacher",
+        "--device", DEVICE, "--seed", str(seed), "--out", os.path.join(work, "teacher.json")])
+    counts = read_counts()
+    row = {k: report[k] for k in ("ok", "final_step", "regularised_steps", "step_seconds",
+                                  "wall_s", "seqs_per_sec", "ada_p_range", "nan_steps", "events")}
+    row["launches"] = counts
+    print("teacher", json.dumps(row), flush=True)
+    if not report["ok"] or report["final_step"] != 17 or report["regularised_steps"] != [16]:
+        raise AssertionError(f"teacher run: {row}")
+    if not all(counts.values()):
+        raise AssertionError(f"teacher run: a kernel was never launched: {counts}")
+    empty_cache()
+    return counts, row
+
+
+def frechet_rows(calls: list) -> list:
+    """The device Frechet distance (``eval/frechet.py::frechet_distance_device``)
+    on the activations of each host one the validation computed, with both
+    values, both times and the gap; then its time on full-rank activations
+    at the protocol's 5000 samples of 2048 dims (no host value there)."""
+    import torch
+
+    from multi_stylegan_torch.eval.frechet import frechet_distance_device
+
+    def device_ms(real, fake):
+        out = frechet_distance_device(real, fake)  # the first call sets cuBLAS up
+        sync()
+        t0 = time.perf_counter()
+        out = frechet_distance_device(real, fake)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    rows = []
+    for real, fake, host, host_s in calls:
+        dev, ms = device_ms(torch.from_numpy(real).to(DEVICE), torch.from_numpy(fake).to(DEVICE))
+        rows.append({"samples": real.shape[0], "dims": real.shape[1], "host": host,
+                     "host_s": host_s, "device": dev, "device_ms": ms,
+                     "rel_gap": abs(dev - host) / abs(host) if host else None})
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    mix = torch.eye(2048, device=DEVICE) + torch.randn(2048, 2048, generator=g, device=DEVICE) / 64
+    real = torch.randn(PROTOCOL_SAMPLES, 2048, generator=g, device=DEVICE) @ mix
+    fake = (torch.randn(PROTOCOL_SAMPLES, 2048, generator=g, device=DEVICE) + 0.1) @ mix
+    value, ms = device_ms(real, fake)
+    rows.append({"samples": PROTOCOL_SAMPLES, "dims": 2048, "device": value, "device_ms": ms})
+    return rows
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -2068,13 +2467,17 @@ def main() -> int:
                                     iter_row["top_device_ops"])
         ref_counts, pt, ref_row = phase("reference", phase_reference, args.seed, trained, work)
         interp_counts, interp_row = phase("interpolate", phase_interpolate, args.seed, pt, work)
+        ddp_counts, ddp_row = phase("ddp", phase_ddp, args.seed, iter_counts)
+        ddp_cli_counts, ddp_cli_row = phase("ddp_cli", phase_ddp_cli, args.seed)
+        teacher_counts, teacher_row = phase("teacher", phase_teacher, args.seed, work)
 
     sample_counts = {"K1": counts["fused_leaky_relu"], "K2": 0,
                      "K3": counts["upfirdn2d"], "K4": 0}
     by_path = {"sample_cli": sample_counts, "train_cli": cli_counts,
                "train_iteration": iter_counts, "bf16_iteration": bf16_counts,
                "sequential_fft": seq_counts, "pl_ladder": pl_counts, "train_run": run_counts,
-               "reference": ref_counts, "interpolate": interp_counts}
+               "reference": ref_counts, "interpolate": interp_counts, "ddp": ddp_counts,
+               "ddp_cli": ddp_cli_counts, "teacher": teacher_counts}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
@@ -2094,6 +2497,7 @@ def main() -> int:
              "k2_edge": k2_edge_row,
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
              "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
+             "ddp": ddp_row, "ddp_cli": ddp_cli_row, "teacher": teacher_row,
              "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))
     print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)

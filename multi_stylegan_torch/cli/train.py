@@ -1,8 +1,9 @@
-"""Training CLI of the PyTorch port (the JAX package's cli/train.py on one GPU;
-flag parity with reference train_multi_stylegan.py:4-28).
+"""Training CLI of the PyTorch port (the JAX package's cli/train.py; flag
+parity with reference train_multi_stylegan.py:4-28).
 
     python -m multi_stylegan_torch.cli.train --path_to_data /data/tlfm --epochs 100
     python -m multi_stylegan_torch.cli.train --synthetic --tiny --device cpu --epochs 1
+    python -m multi_stylegan_torch.cli.train --synthetic --devices 2 --batch_size 24
 
 Trains the flagship config (``GeneratorConfig()``, ``DiscriminatorConfig(no_rfp=True)``,
 ``TrainingConfig()``: 256x256, 2 domains x 3 frames, batch 24, ADA and top-k
@@ -21,16 +22,27 @@ such file, or a reference-format ``.pt`` (the published checkpoint or
 them, both Adam states and the path-length mean).  Runs on the GPU unless
 ``--device cpu`` is given; without CUDA it stops.
 
-Not ported yet (they raise ``NotImplementedError`` naming the ROADMAP item):
-more than one device and the multi-host flags.
+Data parallelism (parallel/mesh.py): ``--devices N`` trains on N ranks, each
+on its rows of every global batch of ``--batch_size`` (which N must
+divide); the default is every visible card, or 1 under ``--device cpu``.
+Without the multi-host flags the CLI spawns the N ranks itself, rank r on
+``cuda:(r mod cards)`` (NCCL when every rank has a card of its own, gloo when
+they share one, gloo on the CPU).  With ``--coordinator_address host:port
+--num_processes N --process_id r`` this process joins a TCP rendezvous as
+rank r of N (on ``cuda:(r mod cards)`` over NCCL, or the CPU over gloo).
+Only rank 0 prints and writes.  Not ported yet (raises
+``NotImplementedError`` naming the ROADMAP item): ``--model_parallel``
+other than 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import os
+import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -53,7 +65,8 @@ from multi_stylegan_torch.models.config import (
 )
 from multi_stylegan_torch.models.discriminator import Discriminator
 from multi_stylegan_torch.models.generator import Generator
-from multi_stylegan_torch.train.draws import TorchDraws
+from multi_stylegan_torch.parallel import mesh
+from multi_stylegan_torch.train.draws import ShardDraws, TorchDraws
 from multi_stylegan_torch.train.loop import Trainer
 from multi_stylegan_torch.utils.precision import pin_f32
 
@@ -62,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--devices", default=None, type=int,
-                        help="Number of devices (the port trains on one; more is not ported).")
+                        help="Number of data-parallel ranks (default: every visible card, "
+                             "1 under --device cpu); --batch_size is the global batch.")
     parser.add_argument("--model_parallel", default=1, type=int,
                         help="Tensor-parallel size (only 1 is ported).")
     parser.add_argument("--batch_size", default=24, type=int,
@@ -122,11 +136,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Write a torch.profiler trace (Chrome JSON) of steps 2-5 "
                              "into this directory.")
     parser.add_argument("--coordinator_address", default=None, type=str,
-                        help="Multi-host launch (not ported).")
+                        help="host:port of rank 0's TCP rendezvous (multi-host: every "
+                             "process runs the same command with its own --process_id).")
     parser.add_argument("--num_processes", default=None, type=int,
-                        help="Multi-host launch (not ported).")
+                        help="Total number of ranks (multi-host).")
     parser.add_argument("--process_id", default=None, type=int,
-                        help="Multi-host launch (not ported).")
+                        help="This process's rank in [0, num_processes) (multi-host).")
     parser.add_argument("--device", default="cuda", type=str,
                         help="'cuda', 'cuda:N' or 'cpu' (CPU runs the plain PyTorch "
                              "versions of the kernels and reads data in-process).")
@@ -134,16 +149,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    unported = [
-        (args.devices not in (None, 1) or args.model_parallel != 1,
-         "--devices / --model_parallel other than 1 (ROADMAP Queue 1: DDP)"),
-        (any(v is not None for v in (args.coordinator_address, args.num_processes,
-                                     args.process_id)),
-         "multi-host launch (ROADMAP Queue 1: DDP)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if args.model_parallel != 1:
+        raise NotImplementedError("not ported yet: --model_parallel other than 1 "
+                                  "(ROADMAP Queue 1: tensor parallelism)")
+
+
+def world_size(args, device: torch.device) -> int:
+    """The number of data-parallel ranks the flags ask for."""
+    multi_host = (args.coordinator_address, args.num_processes, args.process_id)
+    if any(v is not None for v in multi_host):
+        if any(v is None for v in multi_host):
+            raise ValueError("--coordinator_address, --num_processes and --process_id "
+                             "go together")
+        if not 0 <= args.process_id < args.num_processes:
+            raise ValueError(f"--process_id {args.process_id} outside [0, {args.num_processes})")
+        if args.devices not in (None, args.num_processes):
+            raise ValueError(f"--devices {args.devices} differs from --num_processes "
+                             f"{args.num_processes} (one rank per process)")
+        world = args.num_processes
+    elif args.devices is not None:
+        world = args.devices
+    else:
+        world = torch.cuda.device_count() if device == torch.device("cuda") else 1
+    if world < 1:
+        raise ValueError(f"--devices {world}: need at least one rank")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} is the global batch and must "
+                         f"divide over {world} ranks")
+    return world
 
 
 def model_configs(tiny: bool, compat_tower2_bug: bool = False, **kw):
@@ -197,21 +230,22 @@ def validation_metrics(args, latent_dimensions: int, device: torch.device,
         return ()
 
 
-def load_checkpoint(trainer: Trainer, path: str) -> None:
-    """Restore ``path`` into the trainer: a directory of the port's
-    checkpoints (the newest), one such file, or a reference-format .pt."""
+def load_checkpoint(trainer: Trainer, path: str, say=print) -> None:
+    """Restore ``path`` into the trainer (on every rank): a directory of the
+    port's checkpoints (the newest), one such file, or a reference-format
+    .pt."""
     if os.path.isdir(path):
         if not trainer.restore_latest(path):
             raise FileNotFoundError(f"--load_checkpoint {path}: no checkpoint_<step>.pt there")
-        print(f"Restored step {trainer.state.step} from {path}")
+        say(f"Restored step {trainer.state.step} from {path}")
         return
     saved = read_checkpoint(path)
     if "train_state" in saved:
         trainer.load_payload(saved)
-        print(f"Restored step {trainer.state.step} from {path}")
+        say(f"Restored step {trainer.state.step} from {path}")
         return
     found = import_reference_checkpoint(trainer.state, saved)
-    print(f"Loaded reference .pt checkpoint {path}: G, G-EMA, D and noise buffers"
+    say(f"Loaded reference .pt checkpoint {path}: G, G-EMA, D and noise buffers"
           + "".join(f", {what}" for what in found)
           + ("" if {"G Adam", "D Adam"} <= set(found) else
              " (a missing Adam state starts fresh)"))
@@ -219,46 +253,101 @@ def load_checkpoint(trainer: Trainer, path: str) -> None:
 
 def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, Any]] = None,
          validation_samples: Optional[int] = None) -> Dict[str, object]:
-    """Run the CLI; returns what it did (steps, seconds, metrics, finiteness,
-    the trainer).  Python callers may override ``TrainingConfig`` fields the
-    CLI has no flag for (e.g. ``checkpoint_every_n_epochs``) and the metrics'
-    sample count."""
+    """Run the CLI; returns what it did (steps, seconds, metrics, finiteness
+    and, in one process, the trainer and its state; with several ranks
+    spawned here, rank 0's steps, seconds, metrics and finiteness).  Python
+    callers may override ``TrainingConfig`` fields the CLI has no flag for
+    (e.g. ``checkpoint_every_n_epochs``) and the metrics' sample count."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
+    world = world_size(args, device)
+    extra = (config_overrides, validation_samples)
+    if args.coordinator_address is not None:
+        return _rank_main(args.process_id, args, world,
+                          f"tcp://{args.coordinator_address}", False, *extra)
+    if world == 1:
+        return train(args, device, *extra)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    # ranks on the CPU of this host share its cores
+    threads = None if cards else max(1, torch.get_num_threads() // world)
+    with tempfile.TemporaryDirectory(prefix="msg_ranks_") as tmp:
+        summary = os.path.join(tmp, "rank0.json")
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(args, world, f"file://{os.path.join(tmp, 'rendezvous')}",
+                              world > cards, *extra, summary, threads),
+            nprocs=world, join=True, start_method="spawn")
+        with open(summary) as f:
+            return json.load(f)
+
+
+def _rank_main(rank: int, args, world: int, init_method: str, shares_card: bool,
+               config_overrides: Optional[Dict[str, Any]], validation_samples: Optional[int],
+               summary: Optional[str] = None, threads: Optional[int] = None
+               ) -> Dict[str, object]:
+    """One rank of ``world``: join the process group, train, leave it; rank
+    0 writes its summary to ``summary`` when given."""
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+    if threads:
+        torch.set_num_threads(threads)
+    mesh.init(world, rank, init_method, device, shares_card=shares_card)
+    try:
+        run = train(args, device, config_overrides, validation_samples)
+    finally:
+        mesh.shutdown()
+    if summary and rank == 0:
+        with open(summary, "w") as f:
+            json.dump({k: run[k] for k in ("steps", "seconds", "finite", "history")}, f)
+    return run
+
+
+def train(args, device: torch.device, config_overrides: Optional[Dict[str, Any]] = None,
+          validation_samples: Optional[int] = None) -> Dict[str, object]:
+    """Train as this process's rank (rank 0 of 1 without a process group)."""
+    writer = mesh.rank() == 0
+    say = print if writer else (lambda *a, **kw: None)
     pin_f32()
-    print("Init models")
+    say("Init models")
     generator, discriminator, cfg, dataset = build(args, device)
     cfg = dataclasses.replace(cfg, **(config_overrides or {}))
-    print("Init dataset")
-    workers = 0 if device.type == "cpu" else min(8, os.cpu_count() or 1)
+    say("Init dataset")
+    workers = 0 if device.type == "cpu" else max(1, min(8, (os.cpu_count() or 1) // mesh.world()))
     loader = make_loader(dataset, cfg.batch_size, seed=args.seed, num_workers=workers,
                          device=device)
-    print(f"{len(dataset)} sequences, {len(loader)} steps/epoch")
-    logger = Logger(experiment_path=args.experiment_path)
-    logger.log_hyperparameter(hyperparameter_dict=vars(args))
+    say(f"{len(dataset)} sequences, {len(loader)} steps/epoch, {mesh.world()} rank(s)")
+    if writer:
+        logger = Logger(experiment_path=args.experiment_path)
+        logger.log_hyperparameter(hyperparameter_dict=vars(args))
+    # the other ranks log to rank 0's experiment (and write nothing there)
+    path = mesh.broadcast_object(logger.experiment_path if writer else None)
+    if not writer:
+        logger = Logger(experiment_path=path)
     trap_map = (make_trap_weights_map(resolution=generator.config.resolution,
                                       inside_weight=args.trap_weight_inside)
                 if args.trap_weights else None)
     draws = TorchDraws(torch.Generator(device=device).manual_seed(args.seed))
+    if mesh.world() > 1:
+        draws = ShardDraws(draws)
     trainer = Trainer(generator, discriminator, cfg, loader, draws, epochs=args.epochs,
                       data_logger=logger,
                       validation_metrics=validation_metrics(
                           args, generator.config.latent_dimensions, device, validation_samples),
                       trap_weights_map=trap_map, profile_dir=args.profile_dir)
     if args.load_checkpoint:
-        load_checkpoint(trainer, args.load_checkpoint)
+        load_checkpoint(trainer, args.load_checkpoint, say)
 
     def report(step, m):
-        print(f"step {step}: loss D={m['loss_discriminator_real'] + m['loss_discriminator_fake']:.4f}"
-              f" G={m['loss_generator']:.4f} ({m['seconds']:.2f} s)", flush=True)
+        say(f"step {step}: loss D={m['loss_discriminator_real'] + m['loss_discriminator_fake']:.4f}"
+            f" G={m['loss_generator']:.4f} ({m['seconds']:.2f} s)", flush=True)
 
-    print("Start training")
+    say("Start training")
     start = time.perf_counter()
     history = trainer.train(on_step=report)
     seconds = time.perf_counter() - start
     finite = all(math.isfinite(v) for m in history for v in m.values())
-    print(f"Trained {len(history)} steps in {seconds:.1f} s")
+    say(f"Trained {len(history)} steps in {seconds:.1f} s")
     return {"steps": len(history), "seconds": seconds, "finite": finite,
             "history": history, "state": trainer.state, "trainer": trainer}
 

@@ -17,6 +17,11 @@ where the items are read in the calling process in index order; the JAX
 loader's own 8 threads share one rng in scheduling order, so its flips are
 not reproducible there either.  Batches land in pinned memory when the
 target device is CUDA.
+
+Under data parallelism (parallel/mesh.py) every rank draws the same epoch
+permutation and loads only its process-major slice of each global batch,
+as the JAX loader does per process (pipeline.py:42-58, 93-104); each rank's
+dataset draws the flips of the items it loads.
 """
 
 from __future__ import annotations
@@ -28,21 +33,33 @@ import numpy as np
 import torch
 from torch.utils.data import DataLoader, Sampler, get_worker_info
 
+from multi_stylegan_torch.parallel import mesh
+
 
 class EpochSampler(Sampler[int]):
     """A fresh permutation of the dataset's indices per epoch, drawn as the
-    JAX ``BatchLoader._epoch_indices`` draws it."""
+    JAX ``BatchLoader._epoch_indices`` draws it.  With ``world`` ranks it
+    yields, of each whole global batch of ``batch_size``, the slice of rank
+    ``rank``."""
 
-    def __init__(self, n: int, seed: int = 0) -> None:
+    def __init__(self, n: int, seed: int = 0, batch_size: int = 1, rank: int = 0,
+                 world: int = 1) -> None:
         self.n = n
         self.rng = np.random.default_rng(seed)
+        self.batch_size, self.rank, self.world = batch_size, rank, world
 
     def __len__(self) -> int:
-        return self.n
+        if self.world == 1:
+            return self.n
+        return self.n // self.batch_size * (self.batch_size // self.world)
 
     def __iter__(self) -> Iterator[int]:
         idx = np.arange(self.n)
         self.rng.shuffle(idx)
+        if self.world > 1:
+            per = self.batch_size // self.world
+            idx = idx[:self.n // self.batch_size * self.batch_size].reshape(
+                -1, self.world, per)[:, self.rank].reshape(-1)
         return iter(idx.tolist())
 
 
@@ -55,13 +72,18 @@ def _seed_worker(seed: int, worker_id: int) -> None:
 def make_loader(dataset, batch_size: int, seed: int = 0, num_workers: int = 0,
                 device: torch.device = torch.device("cpu")) -> DataLoader:
     """The shuffled, dropped-last loader of ``dataset`` for training on
-    ``device``."""
+    ``device``; under data parallelism ``batch_size`` is the global batch
+    and the loader yields this rank's rows of it."""
     if len(dataset) < batch_size:
         raise ValueError(f"dataset of {len(dataset)} samples cannot fill a batch of {batch_size}")
+    world = mesh.world()
+    if batch_size % world:
+        raise ValueError(f"global batch {batch_size} not divisible by {world} ranks")
     workers = dict(num_workers=num_workers, multiprocessing_context="spawn",
                    persistent_workers=True, prefetch_factor=2,
                    worker_init_fn=functools.partial(_seed_worker, seed)) if num_workers else {}
-    return DataLoader(dataset, batch_size=batch_size, sampler=EpochSampler(len(dataset), seed),
+    sampler = EpochSampler(len(dataset), seed, batch_size, mesh.rank(), world)
+    return DataLoader(dataset, batch_size=batch_size // world, sampler=sampler,
                       drop_last=True, pin_memory=torch.device(device).type == "cuda", **workers)
 
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from multi_stylegan_torch.parallel import mesh
+
 
 def pixel_norm(x: torch.Tensor, eps: float = 1e-8, dim: int = -1) -> torch.Tensor:
     """x / sqrt(mean(x^2, channel) + eps) (equalized_layer.py:276)."""
@@ -21,9 +23,17 @@ def minibatch_std_dev(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     concatenated after the last channel of NCHW ``x``.
 
     Statistics in f32: under bf16, tiny variances quantize to the eps clamp
-    where sqrt's second derivative explodes (R1's grad-of-grad)."""
+    where sqrt's second derivative explodes (R1's grad-of-grad).  Under data
+    parallelism the batch is this call's global batch (parallel/mesh.py):
+    the mean, then the mean of (x - mean)^2, each a differentiable sum over
+    the ranks, so R1 differentiates through both twice."""
     x32 = x.float()
-    var = (x32 - x32.mean(dim=0, keepdim=True)).square().mean(dim=0)
+    if mesh.world() == 1:
+        var = (x32 - x32.mean(dim=0, keepdim=True)).square().mean(dim=0)
+    else:
+        n = x.shape[0] * mesh.world()
+        mean = mesh.all_sum(x32.sum(dim=0, keepdim=True)) / n
+        var = mesh.all_sum((x32 - mean).square().sum(dim=0)) / n
     stat = torch.sqrt(torch.clamp(var, min=eps)).mean().to(x.dtype)
     b, _, h, w = x.shape
     feat = stat.expand(b, 1, h, w)

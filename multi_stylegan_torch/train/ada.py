@@ -34,6 +34,8 @@ import math
 
 import torch
 
+from multi_stylegan_torch.parallel import mesh
+
 # std of the underlying normal for the log-normal scale jitter (ada.py:141)
 LOGNORMAL_SIGMA = (0.2 * math.log(2.0)) ** 2
 
@@ -57,9 +59,11 @@ class AdaState:
 
 def calc_r(prediction_scalar: torch.Tensor, prediction_pixel_wise: torch.Tensor) -> torch.Tensor:
     """r = 0.5 E[sign(D_s)] + 0.5 E[sign(mean D_p)] on FAKE batches
-    (ada.py:43-52; the reference signs the fake predictions, a quirk kept)."""
-    r1 = torch.sign(prediction_scalar).mean()
-    r2 = torch.sign(prediction_pixel_wise.mean(dim=(-1, -2))).mean()
+    (ada.py:43-52; the reference signs the fake predictions, a quirk kept);
+    over the global batch under data parallelism, so p moves the same way
+    on every rank."""
+    r1, r2 = mesh.global_mean(torch.sign(prediction_scalar),
+                              torch.sign(prediction_pixel_wise.mean(dim=(-1, -2))))
     return 0.5 * r1 + 0.5 * r2
 
 

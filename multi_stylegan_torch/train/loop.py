@@ -17,6 +17,14 @@ training generator, fixed and random noise), validation every
 training goes on, as in the JAX loop: the last checkpoint stays the restore
 point.  With ``profile_dir`` the steps 2 to 5 of the run are traced by
 ``torch.profiler`` (step 1 warms up), as in the JAX loop.
+
+Under data parallelism (parallel/mesh.py) every rank runs this loop on its
+rows of each global batch, from rank 0's initial state, and the ranks stay
+replicas.  Only rank 0 writes (metrics, grids, the trace, checkpoints), as
+only process 0 does in the JAX loop; the checkpoint holds every rank's
+loader state, and the other ranks wait at a barrier while it is written
+(JAX loop.py:423).  Validation runs on every rank over the global batches,
+with the same samples everywhere (JAX loop.py:282-288).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from multi_stylegan_torch.io.checkpoint import (
 )
 from multi_stylegan_torch.io.logger import Logger
 from multi_stylegan_torch.models.config import TrainingConfig
+from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.train.robust import RobustPathLength
 from multi_stylegan_torch.train.state import create_train_state
 from multi_stylegan_torch.train.steps import StepFlags, TrainStep
@@ -87,8 +96,11 @@ class Trainer:
         trap = None if trap_weights_map is None else torch.as_tensor(trap_weights_map).to(self.device)
         self.step_fn = TrainStep(config, top_k_start_iteration=start,
                                  top_k_final_iteration=final, trap_weights_map=trap)
+        self.step_fn.check_shards(config.batch_size)
         self.path_length = RobustPathLength(self.step_fn)
         self.state = create_train_state(generator, discriminator, config)
+        mesh.broadcast_state(train_state_dict(self.state))
+        self.writer = mesh.rank() == 0
         self.ckpt = CheckpointManager(self.logger.path_models)
         # fixed validation latents: 15 pairs, always mixed (model_wrapper.py:99-102)
         gen = torch.Generator(device=self.device).manual_seed(config.seed + 1)
@@ -133,21 +145,29 @@ class Trainer:
         metrics.update(loss_path_length_regularization=pl_pen, path_length=pl, **pl_metrics)
         return metrics
 
-    def train(self, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None
-              ) -> List[Dict[str, float]]:
-        """Run every epoch; returns each step's metrics as host floats, with
-        the step's ``seconds`` once its batch was there and its
-        ``data_wait_seconds`` (the time it waited for the batch)."""
+    def train(self, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None,
+              max_steps: Optional[int] = None) -> List[Dict[str, float]]:
+        """Run every epoch, or until the state's step reaches ``max_steps``
+        (the epoch it stops in then ends there); returns each step's metrics
+        as host floats, with the step's ``seconds`` once its batch was there
+        and its ``data_wait_seconds`` (the time it waited for the batch)."""
         cfg, state = self.cfg, self.state
         telemetry = RunTelemetry("MultiStyleGAN", self.epochs,
-                                 os.path.join(self.logger.path_metrics, "eta.log"))
+                                 os.path.join(self.logger.path_metrics, "eta.log")
+                                 if self.writer else None)
         telemetry.start()
         history = []
+
+        def done() -> bool:
+            return max_steps is not None and state.step >= max_steps
+
         for epoch in range(self.epochs):
+            if done():
+                break
             wrong_order, trap, cm_prob = self._epoch_flags(epoch)
             t_epoch, n_seqs = time.perf_counter(), 0
             batches = iter(self.loader)
-            while True:
+            while not done():
                 t0 = time.perf_counter()
                 batch = next(batches, None)
                 if batch is None:
@@ -155,7 +175,7 @@ class Trainer:
                 real = batch.to(self.device, non_blocking=True)
                 t1 = time.perf_counter()
                 step = state.step + 1
-                if self.profile_dir and step == 2:
+                if self.profile_dir and step == 2 and self.writer:
                     self.trace = Trace(self.profile_dir)
                     self.trace.start()
                 flags = StepFlags(wrong_order=wrong_order, trap_weight=trap,
@@ -172,16 +192,18 @@ class Trainer:
                     self.logger.log_metric(name, value)
                 host.update(seconds=seconds, data_wait_seconds=t1 - t0)
                 history.append(host)
-                n_seqs += real.shape[0]
+                n_seqs += real.shape[0] * mesh.world()
                 if on_step is not None:
                     on_step(state.step, host)
             self.logger.log_metric("seqs_per_sec", n_seqs / max(time.perf_counter() - t_epoch, 1e-9))
             telemetry.step()
-            self._guarded(lambda: self._save_sample_grids(epoch), epoch, "sample-grid save",
-                          "training continues without this epoch's grids")
+            if self.writer:
+                self._guarded(lambda: self._save_sample_grids(epoch), epoch, "sample-grid save",
+                              "training continues without this epoch's grids")
             if (epoch + 1) % cfg.validate_every_n_epochs == 0:
                 self.validation()
-            self.logger.save()
+            if self.writer:
+                self.logger.save()
             if (epoch + 1) % cfg.checkpoint_every_n_epochs == 0:
                 self._guarded(self.save_checkpoint, epoch, "checkpoint save",
                               "training continues - the previous checkpoint remains the "
@@ -223,10 +245,11 @@ class Trainer:
 
     def validation(self) -> None:
         """FID / FVD / IS of the EMA generator (model_wrapper.py:197-243),
-        logged as ``<Name>_bf`` / ``<Name>_gfp``; tracks the best FVD."""
+        logged as ``<Name>_bf`` / ``<Name>_gfp``; tracks the best FVD.  The
+        real batches are the global ones on every rank."""
         for metric in self.validation_metrics:
             scores = metric(generator_apply=lambda z1, z2, gen: self.sample(z1, z2, gen),
-                            dataset=self.loader)
+                            dataset=self.loader if mesh.world() == 1 else self._global_batches())
             name = type(metric).__name__
             scores = (scores,) if np.isscalar(scores) else tuple(scores)
             for channel, score in zip(("bf", "gfp", "rfp"), scores):
@@ -234,19 +257,31 @@ class Trainer:
             if "FVD" in name and float(scores[0]) < self.best_fvd:
                 self.best_fvd = float(scores[0])
 
+    def _global_batches(self):
+        """The loader's batches as the global ones (every rank's rows)."""
+        for batch in self.loader:
+            yield mesh.gather_rows(batch.to(self.device))
+
     # ------------------------------------------------------- checkpoints
 
     def checkpoint_payload(self) -> Dict[str, object]:
         """The training state, the draws' generator state and the loader's
-        rng states."""
+        rng states (under data parallelism every rank's, in rank order)."""
+        loader = loader_state(self.loader)
         payload = {"train_state": train_state_dict(self.state),
-                   "loader": loader_state(self.loader)}
+                   "loader": loader if mesh.world() == 1 else mesh.gather_objects(loader)}
         if hasattr(self.draws, "generator"):
             payload["draws"] = self.draws.generator.get_state()
         return payload
 
-    def save_checkpoint(self) -> str:
-        return self.ckpt.save(self.state.step, self.checkpoint_payload())
+    def save_checkpoint(self) -> Optional[str]:
+        """Write the checkpoint (rank 0; every rank takes part in gathering
+        it and waits until it is written); returns its path on rank 0."""
+        payload = self.checkpoint_payload()
+        try:
+            return self.ckpt.save(self.state.step, payload) if self.writer else None
+        finally:
+            mesh.barrier()
 
     def restore_latest(self, directory: Optional[str] = None) -> bool:
         """Restore the newest checkpoint of ``directory`` (default this
@@ -263,6 +298,17 @@ class Trainer:
         are."""
         load_train_state(self.state, saved["train_state"])
         if "loader" in saved:
-            load_loader_state(self.loader, saved["loader"])
+            load_loader_state(self.loader, _own_loader_state(saved["loader"]))
         if "draws" in saved:
             self.draws.generator.set_state(saved["draws"])
+
+
+def _own_loader_state(saved) -> Dict[str, object]:
+    """This rank's loader state from a checkpoint's: a run of as many ranks
+    saved one per rank; from another layout only the shared epoch order
+    carries over."""
+    if isinstance(saved, dict):
+        saved = [saved]
+    if len(saved) == mesh.world():
+        return saved[mesh.rank()]
+    return {"sampler": saved[0]["sampler"]}

@@ -4,6 +4,11 @@ package's train/losses.py).
 R1 and path length take a forward closure; the caller differentiates the
 returned penalty w.r.t. the parameters, so both run a double backward
 (``create_graph=True``), as the reference does (loss.py:283-317, 353-395).
+
+Every batch mean is a mean over the global batch under data parallelism
+(parallel/mesh.py): its value is the global one on every rank and its
+gradient that of this rank's rows, which the step's gradient sum over the
+ranks completes.  Alone they are the plain means.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from multi_stylegan_torch.parallel import mesh
 
 
 def apply_pixel_weight(x: torch.Tensor, weight: Optional[torch.Tensor]) -> torch.Tensor:
@@ -27,14 +34,14 @@ def non_saturating_discriminator_loss(prediction_real: torch.Tensor,
                                       weight: Optional[torch.Tensor] = None):
     """(mean softplus(-real), mean softplus(fake)), each optionally weighted
     per pixel (loss.py:134-170)."""
-    return (apply_pixel_weight(F.softplus(-prediction_real), weight).mean(),
-            apply_pixel_weight(F.softplus(prediction_fake), weight).mean())
+    return mesh.global_mean(apply_pixel_weight(F.softplus(-prediction_real), weight),
+                            apply_pixel_weight(F.softplus(prediction_fake), weight))
 
 
 def non_saturating_discriminator_loss_cut_mix(prediction: torch.Tensor, label: torch.Tensor):
     """Per-pixel-labelled NS loss for cut-mix batches (loss.py:173-195)."""
-    return ((F.softplus(-prediction) * label).mean(),
-            (F.softplus(prediction) * (1.0 - label)).mean())
+    return mesh.global_mean(F.softplus(-prediction) * label,
+                            F.softplus(prediction) * (1.0 - label))
 
 
 def r1_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
@@ -45,7 +52,7 @@ def r1_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     scalar, pixel = d_fn(x)
     s = scalar.sum() + pixel.sum() if use_pixel_head else scalar.sum()
     (grad,) = torch.autograd.grad(s, x, create_graph=True)
-    return 0.5 * grad.reshape(grad.shape[0], -1).square().sum(dim=1).mean()
+    return 0.5 * mesh.global_mean(grad.reshape(grad.shape[0], -1).square().sum(dim=1))
 
 
 def path_length_grads(synth_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -71,7 +78,7 @@ def path_length_penalty(grads: torch.Tensor, mean_path_length: torch.Tensor,
     so the gradient carries the factor (1 - decay).
 
     Returns (penalty, path length, new running mean, detached)."""
-    pl = per_sample_path_lengths(grads).mean()
+    pl = mesh.global_mean(per_sample_path_lengths(grads))
     mean_detached = mean_path_length.detach()
     new_mean = mean_detached + decay * (pl - mean_detached)
     return (pl - new_mean).square(), pl, new_mean.detach()
@@ -95,11 +102,13 @@ def top_k_mask(prediction: torch.Tensor, v: float):
     """{0, 1} mask with exactly k = max(1, floor(B * v)) ones on the largest
     predictions (loss.py:432-444), ties broken by index, and k as a float.
     The reference gathers with torch.topk; masked means with the same k
-    denominator are the same numbers."""
-    flat = prediction.detach().reshape(-1)
+    denominator are the same numbers.  Under data parallelism B and the
+    order are the global batch's (its predictions gathered, ties broken by
+    global index) and the mask is this rank's rows of the global one."""
+    flat = mesh.gather_rows(prediction.detach()).reshape(-1)
     n = flat.shape[0]
     k = max(1, int(np.float32(n) * np.float32(v)))
     order = torch.argsort(-flat, stable=True)
     mask = torch.zeros_like(flat)
     mask[order[:k]] = 1.0
-    return mask.reshape(prediction.shape), float(k)
+    return mesh.shard(mask.reshape(n, *prediction.shape[1:])), float(k)

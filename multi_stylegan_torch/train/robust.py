@@ -21,6 +21,13 @@ loop.py:359).  The step's metrics say which tier ran
 due update was skipped (``path_length_skipped``); a tier change is printed.
 The JAX ladder's compile-helper workarounds have no counterpart: nothing is
 compiled here.
+
+Under data parallelism every rank must demote together, or their
+collectives stop matching.  Each try then runs
+:meth:`TrainStep.path_length_sums` (no collective), all ranks exchange a
+failure flag (a MAX all-reduce), and only when no rank failed do they reduce
+the sums (:meth:`TrainStep.path_length_from_sums`); a failure on any rank
+demotes every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.train.state import TrainState
 
 
@@ -48,7 +56,8 @@ class RobustPathLength:
     def __init__(self, step, report: Callable[[str], None] = print) -> None:
         self.step = step
         self.report = report
-        self.tiers = (1,) + pl_chunk_tiers(step.path_length_batch(step.cfg.batch_size))
+        self.tiers = (1,) + pl_chunk_tiers(
+            step.path_length_batch(step.cfg.batch_size) // mesh.world())
         self.index = 0  # into tiers; len(tiers) once every tier has failed
 
     @property
@@ -73,15 +82,33 @@ class RobustPathLength:
         active tier, demoted on out-of-memory until a tier runs; None once
         every tier has failed."""
         while self.chunks:
-            try:
-                return self.step.path_length_grads(state, pld, self.chunks)
-            except torch.cuda.OutOfMemoryError as exc:
-                message = str(exc)
+            out, message = self._try(state, pld)
+            if out is not None:
+                return out
             # the failed pass's tensors went with the exception's frames
             if pld.probe.device.type == "cuda":
                 torch.cuda.empty_cache()
             self._demote(message)
         return None
+
+    def _try(self, state: TrainState, pld):
+        """(the grads stage's output, "") at the active tier, or (None, the
+        out-of-memory message) when it, or under data parallelism any
+        rank's, ran out of memory."""
+        step = self.step
+        if mesh.world() == 1:
+            try:
+                return step.path_length_grads(state, pld, self.chunks), ""
+            except torch.cuda.OutOfMemoryError as exc:
+                return None, str(exc)
+        sums, message = None, "out of memory on another rank"
+        try:
+            sums = step.path_length_sums(state, pld, self.chunks)
+        except torch.cuda.OutOfMemoryError as exc:
+            message = str(exc)
+        if mesh.any_rank(sums is None, pld.probe.device):
+            return None, message
+        return step.path_length_from_sums(state, *sums), ""
 
     def __call__(self, state: TrainState, draws) -> Tuple[torch.Tensor, torch.Tensor,
                                                           Dict[str, torch.Tensor]]:

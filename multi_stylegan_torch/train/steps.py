@@ -27,7 +27,15 @@ steps.py:426-514).  Port decisions:
   chunking sees the sample set of the unchunked step; train/robust.py
   walks the chunkings when memory runs out;
 * ``r1_update`` takes R1's penalty from one D forward; the JAX ``r1_step``
-  also runs a second forward for predictions that split mode discards.
+  also runs a second forward for predictions that split mode discards;
+* under data parallelism (parallel/mesh.py) ``real`` is this rank's rows of
+  the global batch, every draw is asked for at the global batch (the
+  provider keeps this rank's rows, train/draws.py::ShardDraws), every loss
+  and metric is its global value, and every sub-step's gradients are summed
+  over the ranks before the update; the wrong-order rows (the first of the
+  global batch, all on the first ranks) are re-sharded over every rank
+  before their D forward, so no rank skips a forward that the others
+  reduce across.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from multi_stylegan_torch.models.discriminator import (
     generate_cut_mix_augmentation_data,
     generate_cut_mix_transformation_data,
 )
+from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.train import losses
 from multi_stylegan_torch.train.ada import augment_sequences, calc_r, update_ada_state
 from multi_stylegan_torch.train.ema import ema_update
@@ -111,13 +120,15 @@ class TrainStep:
         return generator.make_wplus(w1, w2, inject)
 
     def sample_fakes(self, generator, batch: int, draws) -> torch.Tensor:
+        """This rank's rows of ``batch`` (global) fakes."""
         wplus = self.build_wplus(generator, batch, draws)
         return generator.synthesize(wplus, draws.noise(batch, generator._noise_shapes()))
 
     def _d_ada(self, state: TrainState, images: torch.Tensor, draws):
         b, _, _, h, w = images.shape
-        return state.discriminator(augment_sequences(images, draws.ada(b, h, w, state.ada.p),
-                                                     self.cfg.ada_sequential_warps))
+        return state.discriminator(augment_sequences(
+            images, draws.ada(b * mesh.world(), h, w, state.ada.p),
+            self.cfg.ada_sequential_warps))
 
     def _update_ada(self, state: TrainState, r: torch.Tensor) -> None:
         cfg = self.cfg
@@ -134,7 +145,22 @@ class TrainStep:
 
     @staticmethod
     def _grads(loss: torch.Tensor, opt) -> List[torch.Tensor]:
-        return list(torch.autograd.grad(loss, opt.params, allow_unused=True))
+        """The parameters' gradients of ``loss``, summed over the ranks."""
+        return mesh.all_reduce_grads(torch.autograd.grad(loss, opt.params, allow_unused=True))
+
+    def wrong_order_batch(self, b: int) -> int:
+        """The time-permuted real rows of a (global) training batch of ``b``."""
+        return max(1, int(self.cfg.batch_factor_wrong_order * b))
+
+    def check_shards(self, b: int) -> None:
+        """Raise unless every batch the step splits over the ranks at a
+        (global) training batch of ``b`` divides evenly (parallel/mesh.py)."""
+        w = mesh.world()
+        for what, n in (("batch", b), ("path-length batch", self.path_length_batch(b)),
+                        ("wrong-order batch", self.wrong_order_batch(b))):
+            if n % w:
+                raise ValueError(f"the {what} of {n} rows (training batch {b}) does not "
+                                 f"divide over {w} ranks")
 
     # -------------------------------------------------------------- D step
 
@@ -142,8 +168,8 @@ class TrainStep:
                  trap: bool = False):
         """The D step's four losses (differentiable in D's params), the fakes,
         the real / fake pixel predictions and the r heuristic's inputs."""
-        b = real.shape[0]
-        n_wrong = max(1, int(self.cfg.batch_factor_wrong_order * b))
+        b = real.shape[0] * mesh.world()
+        n_wrong = self.wrong_order_batch(b)
         with torch.no_grad():
             fakes = self.sample_fakes(state.generator, b, draws)
         perm = draws.permutation(real.shape[2])
@@ -151,7 +177,8 @@ class TrainStep:
         pf_s, pf_p = self._d_ada(state, fakes, draws)
         all_s, all_p = pf_s, pf_p
         if wrong_order:
-            pw_s, pw_p = self._d_ada(state, real[:n_wrong].index_select(2, perm), draws)
+            wrong = mesh.head_rows(real, n_wrong).index_select(2, perm)
+            pw_s, pw_p = self._d_ada(state, wrong, draws)
             all_s, all_p = torch.cat([pf_s, pw_s]), torch.cat([pf_p, pw_p])
         l_real, l_fake = losses.non_saturating_discriminator_loss(pr_s, all_s)
         l_real_px, l_fake_px = losses.non_saturating_discriminator_loss(
@@ -195,27 +222,29 @@ class TrainStep:
         mixed2, target2 = generate_cut_mix_transformation_data(
             draws.cut_mix(h, w), real, fakes, real_pp, fake_pp)
         _, pp = d(mixed2)
-        l_reg = (pp - target2).square().mean()
+        l_reg = mesh.global_mean((pp - target2).square())
         state.d_opt.step(self._grads(w_reg * l_reg, state.d_opt))
         return l_aug.detach(), l_reg.detach()
 
     # -------------------------------------------------------------- G step
 
-    def g_step(self, state: TrainState, b: int, draws, trap: bool = False) -> Metrics:
+    def g_step(self, state: TrainState, batch: int, draws, trap: bool = False) -> Metrics:
         """Non-saturating G loss on both heads through ADA, on the top-k
-        fakes by D's scalar score, the pixel loss trap-weighted when ``trap``."""
+        fakes (of a global ``batch``) by D's scalar score, the pixel loss
+        trap-weighted when ``trap``."""
         if self.top_k_final > self.top_k_start:
             v = losses.top_k_v(state.step, self.top_k_start, self.top_k_final)
         else:
             v = 1.0
-        fakes = self.sample_fakes(state.generator, b, draws)
+        fakes = self.sample_fakes(state.generator, batch, draws)
+        b = fakes.shape[0]
         pf_s, pf_p = self._d_ada(state, fakes, draws)
         mask, k = losses.top_k_mask(pf_s, v)
-        loss_scalar = (F.softplus(-pf_s) * mask).sum() / k
+        loss_scalar = mesh.global_total(F.softplus(-pf_s) * mask) / k
         per_elem = pf_p.numel() // b
         raw_px = losses.apply_pixel_weight(F.softplus(-pf_p) * mask.reshape(b, 1, 1, 1, 1),
                                            self._pixel_weight(trap, pf_p))
-        loss_px = raw_px.sum() / (k * per_elem)
+        loss_px = mesh.global_total(raw_px) / (k * per_elem)
         state.g_opt.step(self._grads(loss_scalar + loss_px, state.g_opt))
         self._update_ada(state, calc_r(pf_s.detach(), pf_p.detach()))
         return dict(loss_generator=loss_scalar.detach(),
@@ -225,11 +254,12 @@ class TrainStep:
     # ------------------------------------------------------ path-length step
 
     def path_length_batch(self, b: int) -> int:
-        """The shrunk path-length batch for a training batch of ``b``."""
+        """The shrunk path-length batch for a (global) training batch of ``b``."""
         return max(1, int(self.cfg.batch_size_shrink_path_length_regularization * b))
 
     def draw_path_length(self, generator, b: int, draws) -> PathLengthDraws:
-        """All draws of a path-length update at training batch ``b``."""
+        """All draws of a path-length update at (global) training batch
+        ``b``: this rank's rows of them."""
         gcfg = generator.config
         bs = self.path_length_batch(b)
         noise = draws.noise(bs, generator._noise_shapes())
@@ -267,13 +297,22 @@ class TrainStep:
         draws (JAX steps.py:557-634).  The per-sample lengths couple only
         through their mean pl, so the gradient is
         w * 2 (1 - decay) (pl - new mean) / bs * sum_i d pl_i / d theta,
-        accumulated chunk by chunk; the running mean is updated once."""
-        cfg, params = self.cfg, state.g_opt.params
-        if n_chunks == 1:
+        accumulated chunk by chunk; the running mean is updated once.  Under
+        data parallelism every chunking takes that form (the sums of
+        :meth:`path_length_sums`, then :meth:`path_length_from_sums`)."""
+        if n_chunks == 1 and mesh.world() == 1:
             pen, pl, new_mean = self._path_length_penalty(state, pld)
-            grads = torch.autograd.grad(cfg.w_generator_regularization * pen, params,
-                                        allow_unused=True)
+            grads = torch.autograd.grad(self.cfg.w_generator_regularization * pen,
+                                        state.g_opt.params, allow_unused=True)
             return list(grads), pen.detach(), pl.detach(), new_mean
+        return self.path_length_from_sums(state, *self.path_length_sums(state, pld, n_chunks))
+
+    def path_length_sums(self, state: TrainState, pld: PathLengthDraws, n_chunks: int):
+        """(G's parameter gradients of sum_i pl_i, sum_i pl_i) over this
+        rank's rows of the draws, in ``n_chunks`` slices; no collective, so a
+        rank that runs out of memory here leaves the others waiting at
+        nothing (train/robust.py)."""
+        params = state.g_opt.params
         bs = pld.probe.shape[0]
         if bs % n_chunks:
             raise ValueError(f"path-length batch {bs} is not divisible into {n_chunks} chunks")
@@ -288,12 +327,19 @@ class TrainStep:
                 if g is not None:
                     acc[k] = g if acc[k] is None else acc[k] + g
             total = total + s.detach()
-        pl = total / bs
+        return acc, total, bs
+
+    def path_length_from_sums(self, state: TrainState, acc, total: torch.Tensor, bs: int):
+        """:meth:`path_length_grads`' output from :meth:`path_length_sums`
+        over ``bs`` rows on each rank, summed over the ranks."""
+        cfg = self.cfg
+        bs = bs * mesh.world()
+        pl = mesh.total(total) / bs
         mean = state.mean_path_length.detach()
         new_mean = mean + cfg.path_length_decay * (pl - mean)
         scale = (cfg.w_generator_regularization * 2.0 * (1.0 - cfg.path_length_decay)
                  * (pl - new_mean) / bs)
-        grads = [None if g is None else scale * g for g in acc]
+        grads = [None if g is None else scale * g for g in mesh.all_reduce_grads(acc)]
         return grads, (pl - new_mean).square(), pl, new_mean
 
     def _apply_path_length(self, state: TrainState, grads, new_mean: torch.Tensor) -> None:
@@ -328,7 +374,7 @@ class TrainStep:
         l_aug = l_reg = zero
         if flags.do_cut_mix:
             l_aug, l_reg = self.cut_mix_step(state, real, fakes, real_pp, fake_pp, draws)
-        metrics.update(self.g_step(state, real.shape[0], draws, flags.trap_weight))
+        metrics.update(self.g_step(state, real.shape[0] * mesh.world(), draws, flags.trap_weight))
         if flags.do_ema:
             ema_update(state.g_ema, state.generator, self.cfg.ema_decay)
         metrics.update(loss_cut_mix_augmentation=l_aug, loss_cut_mix_regularization=l_reg,
