@@ -102,6 +102,14 @@ beside it.  Phases, each raising on failure:
               launches the one-process iteration's.  Per rank: launches,
               peak memory, the ladder's tier, each sub-step's seconds and
               its all-reduces' seconds.
+10b. tp     - the same check for a (data 1, model 2) mesh of two ranks
+              sharing the card (gloo): every sharded conv weight's output
+              channels split between them (parallel/tensor.py), the f32
+              iteration at the published widths and global batch 4 (every
+              channel gather goes through host memory under gloo), held
+              against one process at batch 4: the gathered gradients, the
+              metrics, what each rank holds whole bitwise across the ranks,
+              each rank's launches the one-process iteration's.
 11. ddp_cli - ``cli.train --devices 2`` at the tiny config (two ranks on the
               card): 2 epochs with a checkpoint each, then a resume of the
               first for 1 epoch on 2 ranks; one writer, the resume bitwise
@@ -122,7 +130,7 @@ In the kernels line ``launches`` sums the main-path runs (sampling CLI,
 training CLI, the f32 and bf16 iterations, the sequential + fft main step,
 the path-length ladder's update, the training run with its resume, the
 training and sampling CLIs of phase 8, the interpolation CLI, both ranks of
-phase 10, every rank of phase 11's two runs, the teacher run), each counted
+phases 10 and 10b, every rank of phase 11's two runs, the teacher run), each counted
 from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
 per f32 regularised training iteration at batch 24: each training call
 site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
@@ -1989,69 +1997,77 @@ def phase_interpolate(seed: int, pt: str, work: str):
 DDP_WORLD = 2
 
 
-def ddp_iteration(seed: int, repeat: bool = False) -> dict:
+def ddp_iteration(seed: int, batch: int = TRAIN_BATCH) -> dict:
     """Phase train_iteration's f32 regularised iteration (its seed-made
-    state, draws and batch of 24) as this process's rank: this rank's rows of
-    the global batch and of every draw, the path length through the
-    Trainer's ladder.  Returns the state, every update's gradients (device
-    copies), the metrics, each sub-step's seconds and the seconds of its
-    all-reduces, the ladder's tier, the launches and the peak memory; with
-    ``repeat`` also the seconds of a second iteration on the updated state
-    (a new process's first one builds Triton's kernels and picks cuDNN's
-    algorithms)."""
+    state, draws and batch, of ``batch`` rows) as this process's rank: this
+    data rank's rows of the global batch and of every draw, the models split
+    over the model axis as the Trainer splits them, the path length through
+    the Trainer's ladder.  Returns the state, every update's gradients
+    (device copies, gathered whole), the metrics, each sub-step's seconds,
+    launches and collectives (seconds, count, MiB), the ladder's tier, the
+    launches and the peak memory.  A new process's first iteration includes
+    Triton's builds and cuDNN's choices."""
     import torch
     import torch.distributed as dist
 
     from multi_stylegan_torch.io.checkpoint import train_state_dict
     from multi_stylegan_torch.models.config import TrainingConfig
     from multi_stylegan_torch.parallel import mesh
+    from multi_stylegan_torch.parallel import tensor as tp
     from multi_stylegan_torch.train.draws import ShardDraws, TorchDraws
     from multi_stylegan_torch.train.robust import RobustPathLength
     from multi_stylegan_torch.train.state import create_train_state
     from multi_stylegan_torch.train.steps import StepFlags, TrainStep
 
-    (gcfg, dcfg), cfg = train_configs(), TrainingConfig()
+    (gcfg, dcfg), cfg = train_configs(), TrainingConfig(batch_size=batch)
     gen = random_generator(gcfg, seed + 10).train().to(DEVICE)
     disc = random_discriminator(dcfg, seed + 11).to(DEVICE)
+    tp.shard_model(gen)  # as the Trainer starts
+    tp.shard_model(disc)
     state = create_train_state(gen, disc, cfg)
-    mesh.broadcast_state(train_state_dict(state))  # as the Trainer starts
+    mesh.broadcast_state(train_state_dict(state))
     ts = TrainStep(cfg, top_k_start_iteration=0, top_k_final_iteration=2)
     draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(seed + 12))
     if mesh.world() > 1:
         draws = ShardDraws(draws)
-    real = mesh.shard(real_batch(TRAIN_BATCH, gcfg.resolution, seed + 13)).to(DEVICE)
+    real = mesh.shard(real_batch(batch, gcfg.resolution, seed + 13)).to(DEVICE)
     ladder = RobustPathLength(ts)
     flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
-    updates, record, seconds, reduce_s, current = [], [True], {}, {}, [None]
+    updates, seconds, reduce_s, current = [], {}, {}, [None]
+    reduce_n, reduce_mib, sub_launches = {}, {}, {}
 
     for opt in (state.d_opt, state.g_opt):
-        def step(grads, _step=opt.step):
-            if record[0]:
-                updates.append([None if g is None else g.detach().clone() for g in grads])
+        def step(grads, _step=opt.step, _opt=opt):
+            updates.append((_opt, [None if g is None else g.detach().clone()
+                                   for g in grads]))
             return _step(grads)
         opt.step = step
 
     def timed(name, fn):
         def run(*a, **kw):
-            current[0], reduce_s[name] = name, 0.0
-            sync()
+            current[0], reduce_s[name], reduce_n[name], reduce_mib[name] = name, 0.0, 0, 0.0
+            c0 = read_counts()  # synchronizes
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             sync()
             seconds[name] = time.perf_counter() - t0
+            c1 = read_counts()
+            sub_launches[name] = {k: c1[k] - c0[k] for k in c1}
             return out
         return run
 
     orig_all_reduce = dist.all_reduce
 
-    def all_reduce(*a, **kw):  # host seconds of every collective, the device idle
+    def all_reduce(tensor, *a, **kw):  # host seconds of every collective, the device idle
         sync()
         t0 = time.perf_counter()
         try:
-            return orig_all_reduce(*a, **kw)
+            return orig_all_reduce(tensor, *a, **kw)
         finally:
             sync()
             reduce_s[current[0]] += time.perf_counter() - t0
+            reduce_n[current[0]] += 1
+            reduce_mib[current[0]] += tensor.numel() * tensor.element_size() / 2**20
 
     def iterate():
         metrics = ts.main_step(state, real, flags, draws)
@@ -2069,38 +2085,57 @@ def ddp_iteration(seed: int, repeat: bool = False) -> dict:
         zero_counts()
         metrics = iterate()
         counts = read_counts()
-        out = {"seconds": dict(seconds), "all_reduce_s": dict(reduce_s)}
-        if repeat:
-            record[0] = False
-            iterate()
-            out.update(warm_seconds=dict(seconds), warm_all_reduce_s=dict(reduce_s))
+        out = {"seconds": dict(seconds), "all_reduce_s": dict(reduce_s),
+               "all_reduces": dict(reduce_n), "all_reduce_mib": dict(reduce_mib),
+               "sub_step_launches": dict(sub_launches)}
     finally:
         dist.all_reduce = orig_all_reduce
-    out.update(state=state, updates=updates, metrics=metrics, tier=ladder.chunks, launches=counts,
-               peak_memory_gib=(torch.cuda.max_memory_allocated() / 2**30
-                                if DEVICE == "cuda" else None))
+    peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
+    gathered = [[None if g is None else tp.full_tensor(g, d) for g, d in zip(u, opt.shard_dims)]
+                for opt, u in updates]
+    out.update(state=state, updates=gathered, metrics=metrics, tier=ladder.chunks,
+               launches=counts, peak_memory_gib=peak)
     return out
 
 
+def replicated_tensors(state) -> list:
+    """Every tensor of the training state that each rank holds whole: all
+    of them under data parallelism, all but the blocks of the sharded
+    leaves (parallel/tensor.py) and their moments under tensor parallelism."""
+    from multi_stylegan_torch.io.checkpoint import train_state_dict
+    from multi_stylegan_torch.parallel import mesh
+    from multi_stylegan_torch.parallel import tensor as tp
+
+    sd = train_state_dict(state)
+    for key, module in (("generator", state.generator), ("g_ema", state.g_ema),
+                        ("discriminator", state.discriminator)):
+        sharded = tp.sharded_keys(module)
+        sd[key] = {k: v for k, v in sd[key].items() if k not in sharded}
+    for key, opt in (("g_opt", state.g_opt), ("d_opt", state.d_opt)):
+        for moments in ("exp_avg", "exp_avg_sq"):
+            sd[key][moments] = [m for m, d in zip(sd[key][moments], opt.shard_dims) if d is None]
+    return mesh.tensors_of(sd)
+
+
 def ranks_bitwise_equal(state) -> bool:
-    """Every tensor of the training state the same bits on every rank:
-    rank 0's bytes broadcast and compared."""
+    """Every tensor each rank holds whole the same bits on every rank: rank
+    0's bytes broadcast and compared."""
     import torch
     import torch.distributed as dist
 
-    from multi_stylegan_torch.io.checkpoint import train_state_dict
     from multi_stylegan_torch.parallel import mesh
 
     mine = torch.cat([t.detach().reshape(-1).contiguous().view(torch.uint8)
-                      for t in mesh.tensors_of(train_state_dict(state))])
+                      for t in replicated_tensors(state)])
     theirs = mine.clone()
     dist.broadcast(theirs, src=0)
     return not mesh.any_rank(not torch.equal(mine, theirs), mine.device)
 
 
-def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str) -> None:
-    """One rank of phase ddp (spawned): the iteration, the bitwise check;
-    rank 0 writes its gradients, every rank its summary."""
+def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str, n_model: int,
+             batch: int) -> None:
+    """One rank of phase ddp or tp (spawned): the iteration, the bitwise
+    check; rank 0 writes the gathered gradients, every rank its summary."""
     import torch
 
     from multi_stylegan_torch.parallel import mesh
@@ -2108,11 +2143,12 @@ def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str) -> No
 
     pin_f32()
     device = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device("cpu")
-    backend = mesh.init(world, rank, init_method, device, shares_card=True)
+    backend = mesh.init(world, rank, init_method, device, shares_card=True, n_model=n_model)
     try:
-        run = ddp_iteration(seed, repeat=True)
-        summary = {k: run[k] for k in ("metrics", "seconds", "all_reduce_s", "warm_seconds",
-                                       "warm_all_reduce_s", "tier", "launches", "peak_memory_gib")}
+        run = ddp_iteration(seed, batch=batch)
+        keys = ("metrics", "seconds", "all_reduce_s", "all_reduces", "all_reduce_mib", "tier",
+                "launches", "sub_step_launches", "peak_memory_gib")
+        summary = {k: run[k] for k in keys}
         summary.update(backend=backend, bitwise_equal=ranks_bitwise_equal(run["state"]))
         if rank == 0:
             torch.save([[None if g is None else g.cpu() for g in u] for u in run["updates"]],
@@ -2123,60 +2159,88 @@ def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str) -> No
         mesh.shutdown()
 
 
-def phase_ddp(seed: int, iteration_counts: dict) -> tuple:
-    """Two ranks on the one card (gloo) run phase train_iteration's f32
-    iteration at global batch 24 (12 rows each), held against the same
-    iteration in one process (run here first and freed before the ranks
-    start): every update's summed gradient within GRAD_TOL of its peak, the
-    metrics within 1e-3 relative, the ranks' states the same bits after it
-    and a second, timed iteration, and each rank's K1-K4 launches in the
-    first those of the one-process iteration."""
+def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int,
+                      counts: dict = None) -> tuple:
+    """``world`` ranks on the one card (gloo) at ``n_model`` model ranks run
+    phase train_iteration's f32 iteration at global batch ``batch``, held
+    against the same iteration in one process (run here first and freed
+    before the ranks start): every update's gathered gradient within
+    GRAD_TOL of its peak, every rank's metrics within 1e-3 relative, what
+    each rank holds whole the same bits on every rank, and each rank's K1-K4
+    launches those of the one-process iteration, sub-step by sub-step (and
+    ``counts``, when given).  Per rank: each sub-step's seconds, its
+    collectives' seconds, count and MiB, and its launches."""
     import torch
 
-    ref = ddp_iteration(seed)
+    ref = ddp_iteration(seed, batch=batch)
     ref_updates = [[None if g is None else g.cpu() for g in u] for u in ref["updates"]]
-    ref_row = {k: ref[k] for k in ("seconds", "tier", "launches", "peak_memory_gib")}
+    ref_row = {k: ref[k] for k in ("seconds", "tier", "launches", "sub_step_launches",
+                                   "peak_memory_gib")}
     ref_metrics = ref["metrics"]
     del ref
     empty_cache()
-    with tempfile.TemporaryDirectory(prefix="ddp_") as out:
+    with tempfile.TemporaryDirectory(prefix=f"{name}_") as out:
         t0 = time.perf_counter()
         torch.multiprocessing.start_processes(
-            ddp_rank, args=(DDP_WORLD, f"file://{os.path.join(out, 'rendezvous')}", seed, out),
-            nprocs=DDP_WORLD, join=True, start_method="spawn")
+            ddp_rank, args=(world, f"file://{os.path.join(out, 'rendezvous')}", seed, out,
+                            n_model, batch),
+            nprocs=world, join=True, start_method="spawn")
         wall = time.perf_counter() - t0
         ranks = []
-        for r in range(DDP_WORLD):
+        for r in range(world):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
         got = torch.load(os.path.join(out, "updates.pt"), mmap=True, weights_only=True)
         if len(got) != 6 or len(ref_updates) != 6:
-            raise AssertionError(f"ddp: {len(got)} updates, one process {len(ref_updates)}")
+            raise AssertionError(f"{name}: {len(got)} updates, one process {len(ref_updates)}")
         errors = []
         for k, (a, b) in enumerate(zip(got, ref_updates)):
             if [g is None for g in a] != [g is None for g in b]:
-                raise AssertionError(f"ddp update {k}: other parameters got gradients")
+                raise AssertionError(f"{name} update {k}: other parameters got gradients")
             pairs = [(x, y) for x, y in zip(a, b) if y is not None]
             peak, err = flat_max(y for _, y in pairs), flat_max(x - y for x, y in pairs)
             errors.append({"max_abs_err": err, "peak": peak})
             if not (math.isfinite(err) and peak > 0 and err <= GRAD_TOL * peak):
-                raise AssertionError(f"ddp update {k}: max abs err {err}, peak {peak}")
+                raise AssertionError(f"{name} update {k}: max abs err {err}, peak {peak}")
         del got
-    metric_err = {k: abs(ranks[0]["metrics"][k] - v) / max(abs(v), 1e-12)
-                  for k, v in ref_metrics.items() if abs(ranks[0]["metrics"][k] - v) > 0}
-    row = {"world": DDP_WORLD, "wall_s": wall, "one_process": ref_row, "ranks": ranks,
-           "update_errors": errors, "metric_rel_errors": metric_err}
-    print("ddp", json.dumps(row), flush=True)
-    if any(e > 1e-3 for e in metric_err.values()):
-        raise AssertionError(f"ddp metrics off the one-process ones: {metric_err}")
+    metric_err = [{k: abs(rank["metrics"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in ref_metrics.items() if abs(rank["metrics"][k] - v) > 0}
+                  for rank in ranks]
+    row = {"world": world, "n_model": n_model, "batch": batch, "wall_s": wall,
+           "one_process": ref_row, "ranks": ranks, "update_errors": errors,
+           "metric_rel_errors": metric_err}
+    print(name, json.dumps(row), flush=True)
+    if any(e > 1e-3 for errs in metric_err for e in errs.values()):
+        raise AssertionError(f"{name} metrics off the one-process ones: {metric_err}")
     for r, rank in enumerate(ranks):
-        if not rank["bitwise_equal"] or rank["tier"] != 1 or rank["metrics"] != ranks[0]["metrics"]:
-            raise AssertionError(f"ddp rank {r}: equal={rank['bitwise_equal']}, tier {rank['tier']}")
-        if rank["launches"] != iteration_counts or ref_row["launches"] != iteration_counts:
-            raise AssertionError(f"ddp rank {r} launches {rank['launches']}, one process "
-                                 f"{ref_row['launches']}, phase train_iteration {iteration_counts}")
+        if not rank["bitwise_equal"] or rank["tier"] != 1:
+            raise AssertionError(f"{name} rank {r}: equal={rank['bitwise_equal']}, "
+                                 f"tier {rank['tier']}")
+        if (rank["sub_step_launches"] != ref_row["sub_step_launches"]
+                or rank["launches"] != ref_row["launches"]
+                or counts not in (None, ref_row["launches"])):
+            raise AssertionError(f"{name} rank {r} launches {rank['launches']}, one process "
+                                 f"{ref_row['launches']}, phase train_iteration {counts}")
     empty_cache()
     return {k: sum(rank["launches"][k] for rank in ranks) for k in KERNELS}, row
+
+
+def phase_ddp(seed: int, iteration_counts: dict) -> tuple:
+    """Two data ranks at global batch 24, 12 rows each
+    (:func:`spawned_iteration`); their launches also phase
+    train_iteration's."""
+    return spawned_iteration("ddp", seed, DDP_WORLD, 1, TRAIN_BATCH, iteration_counts)
+
+
+TP_BATCH = 4  # the global batch of phase tp: every channel gather goes through host memory
+
+
+def phase_tp(seed: int) -> tuple:
+    """A (data 1, model 2) mesh on the one card (gloo): the two ranks split
+    every sharded conv weight's output channels (parallel/tensor.py) and run
+    the f32 regularised iteration at the published widths and global batch
+    ``TP_BATCH`` (:func:`spawned_iteration`)."""
+    return spawned_iteration("tp", seed, 2, 2, TP_BATCH)
 
 
 COUNTS_DIR_ENV = "CHIP_SMOKE_COUNTS_DIR"
@@ -2468,6 +2532,7 @@ def main() -> int:
         ref_counts, pt, ref_row = phase("reference", phase_reference, args.seed, trained, work)
         interp_counts, interp_row = phase("interpolate", phase_interpolate, args.seed, pt, work)
         ddp_counts, ddp_row = phase("ddp", phase_ddp, args.seed, iter_counts)
+        tp_counts, tp_row = phase("tp", phase_tp, args.seed)
         ddp_cli_counts, ddp_cli_row = phase("ddp_cli", phase_ddp_cli, args.seed)
         teacher_counts, teacher_row = phase("teacher", phase_teacher, args.seed, work)
 
@@ -2477,7 +2542,7 @@ def main() -> int:
                "train_iteration": iter_counts, "bf16_iteration": bf16_counts,
                "sequential_fft": seq_counts, "pl_ladder": pl_counts, "train_run": run_counts,
                "reference": ref_counts, "interpolate": interp_counts, "ddp": ddp_counts,
-               "ddp_cli": ddp_cli_counts, "teacher": teacher_counts}
+               "tp": tp_counts, "ddp_cli": ddp_cli_counts, "teacher": teacher_counts}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
@@ -2497,7 +2562,7 @@ def main() -> int:
              "k2_edge": k2_edge_row,
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
              "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
-             "ddp": ddp_row, "ddp_cli": ddp_cli_row, "teacher": teacher_row,
+             "ddp": ddp_row, "tp": tp_row, "ddp_cli": ddp_cli_row, "teacher": teacher_row,
              "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))
     print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)

@@ -22,17 +22,20 @@ such file, or a reference-format ``.pt`` (the published checkpoint or
 them, both Adam states and the path-length mean).  Runs on the GPU unless
 ``--device cpu`` is given; without CUDA it stops.
 
-Data parallelism (parallel/mesh.py): ``--devices N`` trains on N ranks, each
-on its rows of every global batch of ``--batch_size`` (which N must
-divide); the default is every visible card, or 1 under ``--device cpu``.
-Without the multi-host flags the CLI spawns the N ranks itself, rank r on
-``cuda:(r mod cards)`` (NCCL when every rank has a card of its own, gloo when
-they share one, gloo on the CPU).  With ``--coordinator_address host:port
---num_processes N --process_id r`` this process joins a TCP rendezvous as
-rank r of N (on ``cuda:(r mod cards)`` over NCCL, or the CPU over gloo).
-Only rank 0 prints and writes.  Not ported yet (raises
-``NotImplementedError`` naming the ROADMAP item): ``--model_parallel``
-other than 1.
+Data and tensor parallelism (parallel/mesh.py, parallel/tensor.py): the
+ranks form the JAX mesh of ``--devices`` data ranks by ``--model_parallel``
+model ranks.  Each data rank trains on its rows of every global batch of
+``--batch_size`` (which ``--devices`` must divide); the ``--model_parallel``
+ranks of a data row split the conv weights' output channels between them
+(the JAX ``state_shardings`` rule).  ``--devices`` defaults to the visible
+cards divided by ``--model_parallel``, or 1 under ``--device cpu``.  Without
+the multi-host flags the CLI spawns the ``devices x model_parallel`` ranks
+itself, rank r on ``cuda:(r mod cards)`` (NCCL when every rank has a card of
+its own, gloo when they share one, gloo on the CPU).  With
+``--coordinator_address host:port --num_processes N --process_id r`` this
+process joins a TCP rendezvous as rank r of N, every rank of both axes (on
+``cuda:(r mod cards)`` over NCCL, or the CPU over gloo).  Only rank 0 prints
+and writes.
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Number of data-parallel ranks (default: every visible card, "
                              "1 under --device cpu); --batch_size is the global batch.")
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="Tensor-parallel size (only 1 is ported).")
+                        help="Tensor-parallel size: ranks that split each conv weight's "
+                             "output channels (the JAX mesh's model axis).")
     parser.add_argument("--batch_size", default=24, type=int,
                         help="Batch size to be utilized while training.")
     parser.add_argument("--epochs", default=100, type=int,
@@ -148,14 +152,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _refuse_unported(args) -> None:
-    if args.model_parallel != 1:
-        raise NotImplementedError("not ported yet: --model_parallel other than 1 "
-                                  "(ROADMAP Queue 1: tensor parallelism)")
-
-
 def world_size(args, device: torch.device) -> int:
-    """The number of data-parallel ranks the flags ask for."""
+    """The number of ranks the flags ask for: ``--devices`` data ranks by
+    ``--model_parallel`` model ranks.  Raises ``ValueError`` on a layout
+    that cannot run, before anything is written."""
+    n_model = args.model_parallel
+    if n_model < 1:
+        raise ValueError(f"--model_parallel {n_model}: need at least one rank")
     multi_host = (args.coordinator_address, args.num_processes, args.process_id)
     if any(v is not None for v in multi_host):
         if any(v is None for v in multi_host):
@@ -163,20 +166,23 @@ def world_size(args, device: torch.device) -> int:
                              "go together")
         if not 0 <= args.process_id < args.num_processes:
             raise ValueError(f"--process_id {args.process_id} outside [0, {args.num_processes})")
-        if args.devices not in (None, args.num_processes):
-            raise ValueError(f"--devices {args.devices} differs from --num_processes "
-                             f"{args.num_processes} (one rank per process)")
-        world = args.num_processes
+        if args.num_processes % n_model or args.devices not in (None, args.num_processes // n_model):
+            raise ValueError(f"--num_processes {args.num_processes} differs from --devices "
+                             f"{args.devices} x --model_parallel {n_model} (one rank per "
+                             "process, every rank counted)")
+        n_data = args.num_processes // n_model
     elif args.devices is not None:
-        world = args.devices
+        n_data = args.devices
+    elif device == torch.device("cuda"):
+        n_data = torch.cuda.device_count() // n_model
     else:
-        world = torch.cuda.device_count() if device == torch.device("cuda") else 1
-    if world < 1:
-        raise ValueError(f"--devices {world}: need at least one rank")
-    if args.batch_size % world:
+        n_data = 1
+    if n_data < 1:
+        raise ValueError(f"--devices {n_data}: need at least one data rank")
+    if args.batch_size % n_data:
         raise ValueError(f"--batch_size {args.batch_size} is the global batch and must "
-                         f"divide over {world} ranks")
-    return world
+                         f"divide over {n_data} data ranks")
+    return n_data * n_model
 
 
 def model_configs(tiny: bool, compat_tower2_bug: bool = False, **kw):
@@ -259,7 +265,6 @@ def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, 
     callers may override ``TrainingConfig`` fields the CLI has no flag for
     (e.g. ``checkpoint_every_n_epochs``) and the metrics' sample count."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     device = resolve_device(args.device)
     world = world_size(args, device)
     extra = (config_overrides, validation_samples)
@@ -292,7 +297,8 @@ def _rank_main(rank: int, args, world: int, init_method: str, shares_card: bool,
         device = torch.device("cuda", rank % torch.cuda.device_count())
     if threads:
         torch.set_num_threads(threads)
-    mesh.init(world, rank, init_method, device, shares_card=shares_card)
+    mesh.init(world, rank, init_method, device, shares_card=shares_card,
+              n_model=args.model_parallel)
     try:
         run = train(args, device, config_overrides, validation_samples)
     finally:
@@ -306,17 +312,19 @@ def _rank_main(rank: int, args, world: int, init_method: str, shares_card: bool,
 def train(args, device: torch.device, config_overrides: Optional[Dict[str, Any]] = None,
           validation_samples: Optional[int] = None) -> Dict[str, object]:
     """Train as this process's rank (rank 0 of 1 without a process group)."""
-    writer = mesh.rank() == 0
+    writer = mesh.writes()
     say = print if writer else (lambda *a, **kw: None)
     pin_f32()
     say("Init models")
     generator, discriminator, cfg, dataset = build(args, device)
     cfg = dataclasses.replace(cfg, **(config_overrides or {}))
     say("Init dataset")
-    workers = 0 if device.type == "cpu" else max(1, min(8, (os.cpu_count() or 1) // mesh.world()))
+    workers = (0 if device.type == "cpu"
+               else max(1, min(8, (os.cpu_count() or 1) // mesh.process_count())))
     loader = make_loader(dataset, cfg.batch_size, seed=args.seed, num_workers=workers,
                          device=device)
-    say(f"{len(dataset)} sequences, {len(loader)} steps/epoch, {mesh.world()} rank(s)")
+    say(f"{len(dataset)} sequences, {len(loader)} steps/epoch, {mesh.process_count()} "
+        f"rank(s) ({mesh.world()} data x {mesh.model_world()} model)")
     if writer:
         logger = Logger(experiment_path=args.experiment_path)
         logger.log_hyperparameter(hyperparameter_dict=vars(args))
@@ -347,7 +355,9 @@ def train(args, device: torch.device, config_overrides: Optional[Dict[str, Any]]
     history = trainer.train(on_step=report)
     seconds = time.perf_counter() - start
     finite = all(math.isfinite(v) for m in history for v in m.values())
-    say(f"Trained {len(history)} steps in {seconds:.1f} s")
+    peak = (f"; peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB on this rank"
+            if device.type == "cuda" else "")
+    say(f"Trained {len(history)} steps in {seconds:.1f} s{peak}")
     return {"steps": len(history), "seconds": seconds, "finite": finite,
             "history": history, "state": trainer.state, "trainer": trainer}
 

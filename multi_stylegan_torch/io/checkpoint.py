@@ -28,21 +28,26 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.state import TrainState
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
 
 
-def train_state_dict(state: TrainState) -> Dict[str, Any]:
-    """The tensors and counters of ``state`` (references, not copies)."""
+def train_state_dict(state: TrainState, full: bool = False) -> Dict[str, Any]:
+    """The tensors and counters of ``state`` (references, not copies); with
+    ``full`` the one-process layout: its tensor-parallel blocks gathered
+    whole (every rank of the model group takes part)."""
+    module_sd = tp.full_module_state if full else (lambda m: m.state_dict())
+    opt_sd = (lambda o: o.full_state_dict()) if full else (lambda o: o.state_dict())
     ada = state.ada
     return {
         "step": state.step,
-        "generator": state.generator.state_dict(),
-        "g_ema": state.g_ema.state_dict(),
-        "discriminator": state.discriminator.state_dict(),
-        "g_opt": state.g_opt.state_dict(),
-        "d_opt": state.d_opt.state_dict(),
+        "generator": module_sd(state.generator),
+        "g_ema": module_sd(state.g_ema),
+        "discriminator": module_sd(state.discriminator),
+        "g_opt": opt_sd(state.g_opt),
+        "d_opt": opt_sd(state.d_opt),
         "ada": {"p": ada.p, "r_sum": ada.r_sum, "r_count": ada.r_count, "last_r": ada.last_r},
         "mean_path_length": state.mean_path_length,
     }
@@ -50,7 +55,8 @@ def train_state_dict(state: TrainState) -> Dict[str, Any]:
 
 @torch.no_grad()
 def load_train_state(state: TrainState, saved: Dict[str, Any]) -> None:
-    """Copy a :func:`train_state_dict` into ``state``'s live tensors."""
+    """Copy a :func:`train_state_dict` (of any layout) into ``state``'s live
+    tensors; under tensor parallelism each rank keeps its blocks."""
     state.step = int(saved["step"])
     state.generator.load_state_dict(saved["generator"])
     state.g_ema.load_state_dict(saved["g_ema"])

@@ -6,8 +6,11 @@ plots,models}``, appends scalars to in-memory streams flushed as one
 ``<metric>.npy`` per stream by :meth:`Logger.save`, dumps the
 hyperparameters as JSON into ``hyperparameters/hyperparameter.txt``, and
 saves sample grids as PNG strips (BF grey, GFP green, RFP red) through the
-port's own PNG writer (io/images.py).  The JAX logger's optional
-TensorBoard writer is not ported.
+port's own PNG writer (io/images.py).  With ``tensorboard=True`` every
+``log_metric`` scalar also goes to ``<experiment>/tensorboard`` through
+``torch.utils.tensorboard``, its step the count of values logged under that
+name; where the writer cannot be made (no ``tensorboard`` package) it is
+None and nothing is said, as in the JAX logger.  No CLI turns it on.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ class Logger:
         path_hyperparameters: str = "hyperparameters",
         path_plots: str = "plots",
         path_models: str = "models",
+        tensorboard: bool = False,
     ) -> None:
         if experiment_path is None:
             experiment_path = os.path.join(
@@ -47,9 +51,20 @@ class Logger:
         self.metrics: Dict[str, list] = {}
         self.temp_metrics: Dict[str, list] = {}
         self.hyperparameters: Dict[str, list] = {}
+        self._tb_writer = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb_writer = SummaryWriter(os.path.join(experiment_path, "tensorboard"))
+            except Exception:  # noqa: BLE001 - an optional writer, silent as in JAX
+                self._tb_writer = None
 
     def log_metric(self, metric_name: str, value: Any) -> None:
         self.metrics.setdefault(metric_name, []).append(float(value))
+        if self._tb_writer is not None:
+            self._tb_writer.add_scalar(metric_name, float(value),
+                                       global_step=len(self.metrics[metric_name]))
 
     def log_temp_metric(self, metric_name: str, value: Any) -> None:
         self.temp_metrics.setdefault(metric_name, []).append(float(value))
@@ -81,6 +96,8 @@ class Logger:
         return save_prediction(np.asarray(prediction), self.path_plots, name)
 
     def save(self) -> None:
+        if self._tb_writer is not None:
+            self._tb_writer.flush()
         with open(os.path.join(self.path_hyperparameters, "hyperparameter.txt"), "w") as f:
             json.dump(self.hyperparameters, f)
         for metric_name, values in self.metrics.items():

@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import torch
 
 from multi_stylegan_torch.models.config import DiscriminatorConfig, GeneratorConfig, TrainingConfig
+from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.state import ClippedAdam, TrainState
 
 
@@ -162,15 +163,17 @@ def install_adam_moments(opt: ClippedAdam, module: torch.nn.Module,
                          count: int) -> None:
     """Put moments keyed by parameter name into ``opt`` (whose parameters
     are ``module``'s) and set its step count; the next update continues the
-    torch trajectory (the same bias-correction count)."""
+    torch trajectory (the same bias-correction count).  Under tensor
+    parallelism a sharded parameter takes this rank's block of its moments."""
     names = {id(p): n for n, p in module.named_parameters()}
     for i, p in enumerate(opt.params):
         name = names[id(p)]
         for moments, src in ((opt.exp_avg, mu), (opt.exp_avg_sq, nu)):
-            if tuple(src[name].shape) != tuple(p.shape):
+            value = tp.local_block(src[name], p, opt.shard_dims[i])
+            if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"moment of '{name}' has shape {tuple(src[name].shape)}, "
                                  f"the parameter {tuple(p.shape)}")
-            moments[i] = src[name].to(device=p.device, dtype=p.dtype).clone()
+            moments[i] = value.to(device=p.device, dtype=p.dtype).clone()
     opt.count.fill_(count)
 
 
@@ -186,13 +189,13 @@ def import_reference_checkpoint(state: TrainState, ckpt: Mapping[str, Any]) -> L
     state.g_ema.load_state_dict(strip_prefixes(ckpt["generator_ema"]), strict=True)
     state.discriminator.load_state_dict(d_sd, strict=True)
     found = []
-    for key, label, opt, module, order in (
+    for key, label, opt, module, order, full_sd in (
             ("generator_optimizer", "G Adam", state.g_opt, state.generator,
-             generator_adam_order(state.generator.config)),
+             generator_adam_order(state.generator.config), g_sd),
             ("discriminator_optimizer", "D Adam", state.d_opt, state.discriminator,
-             discriminator_adam_order(d_sd, state.discriminator.config))):
+             discriminator_adam_order(d_sd, state.discriminator.config), d_sd)):
         if key in ckpt:
-            mu, nu, count = convert_adam_state(ckpt[key], order, module.state_dict())
+            mu, nu, count = convert_adam_state(ckpt[key], order, full_sd)
             install_adam_moments(opt, module, mu, nu, count)
             found.append(label)
     plr = ckpt.get("path_length_regularization") or {}

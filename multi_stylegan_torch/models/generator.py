@@ -40,6 +40,7 @@ from multi_stylegan_torch.ops.modulated_conv import (
     modulated_conv2d,
     modulated_conv_transpose2d,
 )
+from multi_stylegan_torch.parallel import tensor as tp
 
 _CL = torch.channels_last
 
@@ -80,8 +81,14 @@ class ModulatedConv2d(nn.Module):
     ``modulation_mapping=True`` owns the style affine (bias init 1.0) and
     returns ``(y, s)``; ``False`` consumes an already-modulated style.
     The upsampling variant is a k2 s2 transposed conv followed by the gain-4
-    blur with ``blur_padding(len(taps), 2, k)``.
+    blur with ``blur_padding(len(taps), 2, k)``.  Under tensor parallelism
+    (parallel/tensor.py) the weight may hold this rank's output channels:
+    modulation and demodulation are local to them, and a gather makes the
+    full output before the blur.
     """
+
+    tp_param = ("weight", 1)
+    tp_sharded = False
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  style_dim: int, demodulate: bool = True, upsampling: bool = False,
@@ -106,13 +113,17 @@ class ModulatedConv2d(nn.Module):
     def forward(self, x: torch.Tensor, style: torch.Tensor):
         s = self.modulation_mapping(style) if self.has_mapping else style
         w = self.weight[0]
+        xl, sl = (tp.copy(x), tp.copy(s)) if self.tp_sharded else (x, s)
         if self.upsampling:
             y = modulated_conv_transpose2d(
-                x, w, s, scale=self.scale, demodulate=self.demodulate, stride=2)
-            y = _nchw(blur(_nhwc(y), self.blur.kernel, self.blur_pad))
+                xl, w, sl, scale=self.scale, demodulate=self.demodulate, stride=2)
         else:
-            y = modulated_conv2d(x, w, s, scale=self.scale, demodulate=self.demodulate,
+            y = modulated_conv2d(xl, w, sl, scale=self.scale, demodulate=self.demodulate,
                                  padding=self.kernel_size // 2)
+        if self.tp_sharded:
+            y = tp.gather(y)
+        if self.upsampling:
+            y = _nchw(blur(_nhwc(y), self.blur.kernel, self.blur_pad))
         if self.has_mapping:
             return y, s
         return y
@@ -189,9 +200,16 @@ class OutputBlock(nn.Module):
 
 
 class ConstantInput(nn.Module):
+    tp_param = ("input", 1)
+    tp_sharded = False
+
     def __init__(self, channels: int, size: Tuple[int, int], device=None):
         super().__init__()
         self.input = nn.Parameter(torch.ones(1, channels, *size, device=device))
+
+    def value(self) -> torch.Tensor:
+        """The [1, C, h, w] input (gathered when this rank holds a block)."""
+        return tp.gather(self.input) if self.tp_sharded else self.input
 
 
 class Generator(nn.Module):
@@ -304,7 +322,7 @@ class Generator(nn.Module):
         ob1, ob2 = self.output_blocks_1, self.output_blocks_2
 
         def const(ci):
-            return ci.input.to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
+            return ci.value().to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
 
         run = functools.partial(self._block, cfg.remat if remat is None else remat)
         px = cfg.starting_resolution[0]

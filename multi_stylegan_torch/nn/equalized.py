@@ -1,5 +1,5 @@
-"""Equalized-learning-rate linear and conv layers and the bias-owning fused
-leaky-ReLU.
+"""Equalized-learning-rate linear and conv layers (2-D, transposed 2-D and
+1-D) and the bias-owning fused leaky-ReLU.
 
 Reference: multi_stylegan/equalized_layer.py:9-74, 210-254 and
 op_static/fused_act.py:76-85.  Weights are drawn ~N(0, 1) and scaled at run
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multi_stylegan_torch.ops.fused_act import fused_leaky_relu
+from multi_stylegan_torch.parallel import tensor as tp
 
 
 class EqualizedLinear(nn.Module):
@@ -51,7 +52,13 @@ class EqualizedLinear(nn.Module):
 class EqualizedConv2d(nn.Module):
     """Equalized 2D conv on NCHW (channels_last) input, symmetric integer
     padding (equalized_layer.py:9-74): y = conv(x, W * sqrt(2/(Cin*k*k)))
-    + b * sqrt(2/Cout), W stored [Cout, Cin, kh, kw], bias init 0."""
+    + b * sqrt(2/Cout), W stored [Cout, Cin, kh, kw], bias init 0.  Under
+    tensor parallelism (parallel/tensor.py) the weight may hold this rank's
+    output channels: the conv computes them and a gather makes the full
+    output before the (replicated) bias."""
+
+    tp_param = ("weight", 0)
+    tp_sharded = False
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 1, bias: bool = True, device=None):
@@ -68,10 +75,62 @@ class EqualizedConv2d(nn.Module):
         self.scale_bias = math.sqrt(2.0) / math.sqrt(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, (self.weight * self.scale).to(x.dtype),
-                     stride=self.stride, padding=self.padding)
+        w = (self.weight * self.scale).to(x.dtype)
+        if self.tp_sharded:
+            y = tp.gather(F.conv2d(tp.copy(x), w, stride=self.stride, padding=self.padding))
+        else:
+            y = F.conv2d(x, w, stride=self.stride, padding=self.padding)
         if self.bias is not None:
             y = y + (self.bias * self.scale_bias).to(x.dtype)[None, :, None, None]
+        return y
+
+
+class EqualizedTransposedConv2d(nn.Module):
+    """Equalized 2D transposed conv on NCHW input (equalized_layer.py:77-143):
+    ``conv_transpose2d`` with W * sqrt(2/(Cin*k*k)), W stored [Cin, Cout,
+    kh, kw] as torch's transposed convs keep it, + b * sqrt(2/Cout) with the
+    bias initialised to ONES (a reference quirk).  The models do not use it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 2,
+                 stride: int = 2, padding: int = 0, bias: bool = True, device=None):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k, k, device=device))
+        self.bias = (nn.Parameter(torch.ones(out_channels, device=device)) if bias else None)
+        self.stride = stride
+        self.padding = padding
+        self.scale = math.sqrt(2.0) / math.sqrt(in_channels * k * k)
+        self.scale_bias = math.sqrt(2.0) / math.sqrt(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x, (self.weight * self.scale).to(x.dtype),
+                               stride=self.stride, padding=self.padding)
+        if self.bias is not None:
+            y = y + (self.bias * self.scale_bias).to(x.dtype)[None, :, None, None]
+        return y
+
+
+class EqualizedConv1d(nn.Module):
+    """Equalized 1D conv on [B, C, L] input (equalized_layer.py:146-207):
+    W stored [Cout, Cin, k], bias initialised to ONES.  The models do not
+    use it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, bias: bool = True, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.ones(out_channels, device=device)) if bias else None)
+        self.stride = stride
+        self.padding = padding
+        self.scale = math.sqrt(2.0) / math.sqrt(in_channels * kernel_size)
+        self.scale_bias = math.sqrt(2.0) / math.sqrt(out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv1d(x, (self.weight * self.scale).to(x.dtype), stride=self.stride,
+                     padding=self.padding)
+        if self.bias is not None:
+            y = y + (self.bias * self.scale_bias).to(x.dtype)[None, :, None]
         return y
 
 

@@ -21,10 +21,18 @@ point.  With ``profile_dir`` the steps 2 to 5 of the run are traced by
 Under data parallelism (parallel/mesh.py) every rank runs this loop on its
 rows of each global batch, from rank 0's initial state, and the ranks stay
 replicas.  Only rank 0 writes (metrics, grids, the trace, checkpoints), as
-only process 0 does in the JAX loop; the checkpoint holds every rank's
+only process 0 does in the JAX loop; the checkpoint holds every data rank's
 loader state, and the other ranks wait at a barrier while it is written
 (JAX loop.py:423).  Validation runs on every rank over the global batches,
 with the same samples everywhere (JAX loop.py:282-288).
+
+Under tensor parallelism (parallel/tensor.py) the Trainer splits the
+models' sharded leaves over the model axis before it builds the state, so
+the Adam moments and the EMA are blocks too.  A checkpoint keeps the
+one-process layout: every rank takes part in gathering the blocks, rank 0
+writes them, and a restore keeps each rank's block, so a checkpoint moves
+between layouts.  The sample grids run on every rank (their synthesis
+gathers channels), and rank 0 writes them.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from multi_stylegan_torch.io.checkpoint import (
 from multi_stylegan_torch.io.logger import Logger
 from multi_stylegan_torch.models.config import TrainingConfig
 from multi_stylegan_torch.parallel import mesh
+from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.robust import RobustPathLength
 from multi_stylegan_torch.train.state import create_train_state
 from multi_stylegan_torch.train.steps import StepFlags, TrainStep
@@ -98,9 +107,11 @@ class Trainer:
                                  top_k_final_iteration=final, trap_weights_map=trap)
         self.step_fn.check_shards(config.batch_size)
         self.path_length = RobustPathLength(self.step_fn)
+        tp.shard_model(generator)
+        tp.shard_model(discriminator)
         self.state = create_train_state(generator, discriminator, config)
         mesh.broadcast_state(train_state_dict(self.state))
-        self.writer = mesh.rank() == 0
+        self.writer = mesh.writes()
         self.ckpt = CheckpointManager(self.logger.path_models)
         # fixed validation latents: 15 pairs, always mixed (model_wrapper.py:99-102)
         gen = torch.Generator(device=self.device).manual_seed(config.seed + 1)
@@ -197,7 +208,7 @@ class Trainer:
                     on_step(state.step, host)
             self.logger.log_metric("seqs_per_sec", n_seqs / max(time.perf_counter() - t_epoch, 1e-9))
             telemetry.step()
-            if self.writer:
+            if self.writer or mesh.model_world() > 1:
                 self._guarded(lambda: self._save_sample_grids(epoch), epoch, "sample-grid save",
                               "training continues without this epoch's grids")
             if (epoch + 1) % cfg.validate_every_n_epochs == 0:
@@ -233,7 +244,8 @@ class Trainer:
             for randomize, name in ((False, f"{tag}_{epoch + 1}"), (True, f"{tag}_rand_{epoch + 1}")):
                 images = self.sample(z1, z2, self.grid_generator(epoch), ema=ema,
                                      randomize_noise=randomize)
-                self.logger.save_prediction(images.cpu().numpy(), name)
+                if self.writer:
+                    self.logger.save_prediction(images.cpu().numpy(), name)
 
     def grid_generator(self, epoch: int) -> torch.Generator:
         """The draws (mixing layer, noise) of an epoch's grids, a pure
@@ -265,11 +277,13 @@ class Trainer:
     # ------------------------------------------------------- checkpoints
 
     def checkpoint_payload(self) -> Dict[str, object]:
-        """The training state, the draws' generator state and the loader's
-        rng states (under data parallelism every rank's, in rank order)."""
+        """The training state in the one-process layout, the draws'
+        generator state and the loader's rng states (under data parallelism
+        every data rank's, in rank order)."""
         loader = loader_state(self.loader)
-        payload = {"train_state": train_state_dict(self.state),
-                   "loader": loader if mesh.world() == 1 else mesh.gather_objects(loader)}
+        if mesh.world() > 1:
+            loader = mesh.gather_objects(loader)[::mesh.model_world()]
+        payload = {"train_state": train_state_dict(self.state, full=True), "loader": loader}
         if hasattr(self.draws, "generator"):
             payload["draws"] = self.draws.generator.get_state()
         return payload
@@ -304,9 +318,9 @@ class Trainer:
 
 
 def _own_loader_state(saved) -> Dict[str, object]:
-    """This rank's loader state from a checkpoint's: a run of as many ranks
-    saved one per rank; from another layout only the shared epoch order
-    carries over."""
+    """This data rank's loader state from a checkpoint's: a run of as many
+    data ranks saved one per rank; from another layout only the shared epoch
+    order carries over."""
     if isinstance(saved, dict):
         saved = [saved]
     if len(saved) == mesh.world():

@@ -29,6 +29,12 @@ def apply_pixel_weight(x: torch.Tensor, weight: Optional[torch.Tensor]) -> torch
     return x if weight is None else x * weight.reshape(1, 1, 1, *weight.shape[-2:])
 
 
+def non_saturating_generator_loss(prediction_fake: torch.Tensor,
+                                  weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mean softplus(-fake), optionally weighted per pixel (loss.py:97-131)."""
+    return mesh.global_mean(apply_pixel_weight(F.softplus(-prediction_fake), weight))
+
+
 def non_saturating_discriminator_loss(prediction_real: torch.Tensor,
                                       prediction_fake: torch.Tensor,
                                       weight: Optional[torch.Tensor] = None):
@@ -44,6 +50,47 @@ def non_saturating_discriminator_loss_cut_mix(prediction: torch.Tensor, label: t
                             F.softplus(prediction) * (1.0 - label))
 
 
+def wasserstein_generator_loss(prediction_fake: torch.Tensor,
+                               weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """-mean fake (the hinge generator loss too, loss.py:198-209)."""
+    return -mesh.global_mean(apply_pixel_weight(prediction_fake, weight))
+
+
+hinge_generator_loss = wasserstein_generator_loss
+
+
+def wasserstein_discriminator_loss(prediction_real: torch.Tensor,
+                                   prediction_fake: torch.Tensor,
+                                   weight: Optional[torch.Tensor] = None):
+    """(-mean real, mean fake), optionally weighted per pixel."""
+    real, fake = mesh.global_mean(apply_pixel_weight(prediction_real, weight),
+                                  apply_pixel_weight(prediction_fake, weight))
+    return -real, fake
+
+
+def wasserstein_discriminator_loss_cut_mix(prediction: torch.Tensor, label: torch.Tensor):
+    """Per-pixel-labelled Wasserstein loss for cut-mix batches."""
+    real, fake = mesh.global_mean(prediction * label, prediction * (1.0 - label))
+    return -real, fake
+
+
+def hinge_discriminator_loss(prediction_real: torch.Tensor, prediction_fake: torch.Tensor,
+                             weight: Optional[torch.Tensor] = None):
+    """(-mean min(0, real - 1), -mean min(0, -fake - 1)), optionally weighted
+    per pixel."""
+    real, fake = mesh.global_mean(
+        apply_pixel_weight(torch.clamp(prediction_real - 1.0, max=0.0), weight),
+        apply_pixel_weight(torch.clamp(-prediction_fake - 1.0, max=0.0), weight))
+    return -real, -fake
+
+
+def hinge_discriminator_loss_cut_mix(prediction: torch.Tensor, label: torch.Tensor):
+    """Per-pixel-labelled hinge loss for cut-mix batches."""
+    real, fake = mesh.global_mean(torch.clamp(prediction - 1.0, max=0.0) * label,
+                                  torch.clamp(-prediction - 1.0, max=0.0) * (1.0 - label))
+    return -real, -fake
+
+
 def r1_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
                images: torch.Tensor, use_pixel_head: bool = True) -> torch.Tensor:
     """R1 = 0.5 * E[ || grad_x (D_scalar(x).sum() + D_pixel(x).sum()) ||^2 ],
@@ -53,6 +100,13 @@ def r1_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     s = scalar.sum() + pixel.sum() if use_pixel_head else scalar.sum()
     (grad,) = torch.autograd.grad(s, x, create_graph=True)
     return 0.5 * mesh.global_mean(grad.reshape(grad.shape[0], -1).square().sum(dim=1))
+
+
+def r2_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],
+               images_fake: torch.Tensor) -> torch.Tensor:
+    """R2: the gradient penalty on fakes, through the scalar head only
+    (loss.py:320-350; the trainer does not use it)."""
+    return r1_penalty(d_fn, images_fake, use_pixel_head=False)
 
 
 def path_length_grads(synth_fn: Callable[[torch.Tensor], torch.Tensor],

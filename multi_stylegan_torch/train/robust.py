@@ -27,7 +27,11 @@ collectives stop matching.  Each try then runs
 :meth:`TrainStep.path_length_sums` (no collective), all ranks exchange a
 failure flag (a MAX all-reduce), and only when no rank failed do they reduce
 the sums (:meth:`TrainStep.path_length_from_sums`); a failure on any rank
-demotes every rank.
+demotes every rank.  Under tensor parallelism the sums stage itself
+gathers channels over the model group (parallel/tensor.py), so an
+out-of-memory error that strikes one model rank alone inside it leaves the
+others waiting at a gather until the process group's timeout; the ranks of
+a model group run the same shapes, so their memory use is the same.
 """
 
 from __future__ import annotations
@@ -96,7 +100,7 @@ class RobustPathLength:
         out-of-memory message) when it, or under data parallelism any
         rank's, ran out of memory."""
         step = self.step
-        if mesh.world() == 1:
+        if mesh.process_count() == 1:
             try:
                 return step.path_length_grads(state, pld, self.chunks), ""
             except torch.cuda.OutOfMemoryError as exc:

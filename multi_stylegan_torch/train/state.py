@@ -17,30 +17,42 @@ pieces differ where it matters:
 
 Everything stays on the device: the skip is a ``torch.where`` on a device
 flag, so a step needs no host sync.  Parameters update in place.
+
+Under tensor parallelism (parallel/tensor.py) a sharded parameter, its
+gradient and its moments are this rank's block: the global norm adds the
+replicated leaves' sum of squares to the blocks' sums over the model axis,
+and a non-finite value on any model rank skips the step on all of them, as
+``optax`` sees the whole sharded array.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from multi_stylegan_torch.models.config import TrainingConfig
+from multi_stylegan_torch.parallel import mesh
+from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.ada import AdaState
 
 
 class ClippedAdam:
-    """Global-norm clip, then Adam per parameter group, under a finite guard."""
+    """Global-norm clip, then Adam per parameter group, under a finite guard;
+    ``shard_dims`` gives each parameter's tensor-parallel dim (None where
+    replicated)."""
 
     def __init__(self, groups: Sequence[Tuple[Sequence[nn.Parameter], float]], *,
                  b1: float = 0.0, b2: float = 0.999, eps: float = 1e-8,
                  max_norm: float = 5.0, skip_nonfinite: bool = True,
-                 max_consecutive_nonfinite: int = 100):
+                 max_consecutive_nonfinite: int = 100,
+                 shard_dims: Optional[Sequence[Optional[int]]] = None):
         self.groups = [(list(params), float(lr)) for params, lr in groups]
         self.params: List[nn.Parameter] = [p for params, _ in self.groups for p in params]
+        self.shard_dims = list(shard_dims or [None] * len(self.params))
         self.b1, self.b2, self.eps, self.max_norm = b1, b2, eps, max_norm
         self.skip_nonfinite = skip_nonfinite
         self.max_consecutive_nonfinite = max_consecutive_nonfinite
@@ -57,13 +69,22 @@ class ClippedAdam:
         grads = [torch.zeros_like(p) if g is None else g.detach()
                  for p, g in zip(self.params, grads)]
         finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        squares = [g.float().square().sum() for g in grads]
+        if any(d is not None for d in self.shard_dims):
+            rep = sum(q for q, d in zip(squares, self.shard_dims) if d is None)
+            blocks = mesh.model_sum(torch.stack([
+                sum(q for q, d in zip(squares, self.shard_dims) if d is not None),
+                (~finite).float()]))
+            g_norm = torch.sqrt(rep + blocks[0])
+            finite = blocks[1] == 0
+        else:
+            g_norm = torch.sqrt(sum(squares))
         if self.skip_nonfinite:
             self.notfinite_count = torch.where(
                 finite, torch.zeros_like(self.notfinite_count), self.notfinite_count + 1)
             apply = finite | (self.notfinite_count > self.max_consecutive_nonfinite)
         else:
             apply = torch.ones((), dtype=torch.bool, device=finite.device)
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
         clip = g_norm >= self.max_norm
         count = torch.where(apply, self.count + 1, self.count)
         bc1 = 1.0 - self.b1 ** count.float()
@@ -85,11 +106,21 @@ class ClippedAdam:
         return {"exp_avg": list(self.exp_avg), "exp_avg_sq": list(self.exp_avg_sq),
                 "count": self.count, "notfinite_count": self.notfinite_count}
 
+    def full_state_dict(self) -> dict:
+        """:meth:`state_dict` in the one-process layout (every model rank
+        takes part in gathering the sharded moments)."""
+        out = self.state_dict()
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[key] = [tp.full_tensor(m, d) for m, d in zip(out[key], self.shard_dims)]
+        return out
+
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        """Copy a :meth:`state_dict` into this optimizer's tensors in place."""
-        for dst, src in zip(self.exp_avg + self.exp_avg_sq, state["exp_avg"] + state["exp_avg_sq"]):
-            dst.copy_(src)
+        """Copy a :meth:`state_dict` into this optimizer's tensors in place
+        (a one-process layout's moment as this rank's block)."""
+        for key in ("exp_avg", "exp_avg_sq"):
+            for dst, src, d in zip(getattr(self, key), state[key], self.shard_dims):
+                dst.copy_(tp.local_block(src, dst, d))
         self.count.copy_(state["count"])
         self.notfinite_count.copy_(state["notfinite_count"])
 
@@ -101,12 +132,13 @@ def make_generator_optimizer(generator: nn.Module, cfg: TrainingConfig) -> Clipp
     main = [p for p in generator.parameters() if id(p) not in ids]
     return ClippedAdam(
         [(main, cfg.lr_generator), (style, cfg.lr_generator * cfg.lr_style_factor)],
-        **_adam_kw(cfg))
+        shard_dims=tp.shard_dims(generator, main + style), **_adam_kw(cfg))
 
 
 def make_discriminator_optimizer(discriminator: nn.Module, cfg: TrainingConfig) -> ClippedAdam:
-    return ClippedAdam([(list(discriminator.parameters()), cfg.lr_discriminator)],
-                       **_adam_kw(cfg))
+    params = list(discriminator.parameters())
+    return ClippedAdam([(params, cfg.lr_discriminator)],
+                       shard_dims=tp.shard_dims(discriminator, params), **_adam_kw(cfg))
 
 
 def _adam_kw(cfg: TrainingConfig) -> dict:

@@ -35,7 +35,11 @@ steps.py:426-514).  Port decisions:
   over the ranks before the update; the wrong-order rows (the first of the
   global batch, all on the first ranks) are re-sharded over every rank
   before their D forward, so no rank skips a forward that the others
-  reduce across.
+  reduce across;
+* under tensor parallelism (parallel/tensor.py) the ranks of a model group
+  hold the same rows and draws and run the same step on their blocks of the
+  sharded parameters; the update's replicated gradients are averaged over
+  them (parallel/mesh.py::all_reduce_grads).
 """
 
 from __future__ import annotations
@@ -146,14 +150,15 @@ class TrainStep:
     @staticmethod
     def _grads(loss: torch.Tensor, opt) -> List[torch.Tensor]:
         """The parameters' gradients of ``loss``, summed over the ranks."""
-        return mesh.all_reduce_grads(torch.autograd.grad(loss, opt.params, allow_unused=True))
+        return mesh.all_reduce_grads(torch.autograd.grad(loss, opt.params, allow_unused=True),
+                                     opt.shard_dims)
 
     def wrong_order_batch(self, b: int) -> int:
         """The time-permuted real rows of a (global) training batch of ``b``."""
         return max(1, int(self.cfg.batch_factor_wrong_order * b))
 
     def check_shards(self, b: int) -> None:
-        """Raise unless every batch the step splits over the ranks at a
+        """Raise unless every batch the step splits over the data axis at a
         (global) training batch of ``b`` divides evenly (parallel/mesh.py)."""
         w = mesh.world()
         for what, n in (("batch", b), ("path-length batch", self.path_length_batch(b)),
@@ -300,7 +305,7 @@ class TrainStep:
         accumulated chunk by chunk; the running mean is updated once.  Under
         data parallelism every chunking takes that form (the sums of
         :meth:`path_length_sums`, then :meth:`path_length_from_sums`)."""
-        if n_chunks == 1 and mesh.world() == 1:
+        if n_chunks == 1 and mesh.process_count() == 1:
             pen, pl, new_mean = self._path_length_penalty(state, pld)
             grads = torch.autograd.grad(self.cfg.w_generator_regularization * pen,
                                         state.g_opt.params, allow_unused=True)
@@ -339,7 +344,8 @@ class TrainStep:
         new_mean = mean + cfg.path_length_decay * (pl - mean)
         scale = (cfg.w_generator_regularization * 2.0 * (1.0 - cfg.path_length_decay)
                  * (pl - new_mean) / bs)
-        grads = [None if g is None else scale * g for g in mesh.all_reduce_grads(acc)]
+        grads = [None if g is None else scale * g
+                 for g in mesh.all_reduce_grads(acc, state.g_opt.shard_dims)]
         return grads, (pl - new_mean).square(), pl, new_mean
 
     def _apply_path_length(self, state: TrainState, grads, new_mean: torch.Tensor) -> None:

@@ -104,15 +104,16 @@ def test_cli_trains_on_a_tlfm_tree_and_writes_the_experiment(tree, tmp_path, mon
 
 
 @pytest.mark.parametrize("argv", [
-    ["--devices", "2"], ["--model_parallel", "2"], ["--coordinator_address", "localhost:1234"],
+    ["--devices", "2"], ["--model_parallel", "0"], ["--coordinator_address", "localhost:1234"],
     ["--num_processes", "2", "--process_id", "0"],
 ], ids=lambda a: a[0])
 def test_unported_flags_raise(argv, tmp_path):
-    """--model_parallel other than 1 is not ported (ROADMAP).  The
-    data-parallel flags are (tests/test_torch_port_ddp*.py); a layout they
-    cannot run raises as early: a global batch that the ranks do not
-    divide, part of the multi-host flags without the rest."""
-    error, match = {"--model_parallel": (NotImplementedError, "ROADMAP"),
+    """Every flag is ported: the data- and model-parallel flags are held in
+    tests/test_torch_port_ddp*.py and tests/test_torch_port_tp*.py.  A
+    layout they cannot run raises before anything is written: a global batch
+    that the data ranks do not divide, a model axis below one rank, part of
+    the multi-host flags without the rest."""
+    error, match = {"--model_parallel": (ValueError, "at least one rank"),
                     "--devices": (ValueError, "divide")}.get(argv[0], (ValueError, "go together"))
     with pytest.raises(error, match=match):
         train_cli.main(["--tiny", "--synthetic", "--device", "cpu", "--batch_size", "5",
@@ -127,12 +128,14 @@ def test_ported_flags_are_not_refused(argv):
     """bf16 training, the sequential warps and a reference .pt in
     --load_checkpoint are ported (held against the JAX package in
     test_torch_port_{bf16,fft_ada,reference_ckpt}.py): the CLI takes them."""
-    train_cli._refuse_unported(train_cli.build_parser().parse_args(argv))
+    args = train_cli.build_parser().parse_args(["--device", "cpu"] + argv)
+    assert train_cli.world_size(args, torch.device("cpu")) == 1
 
 
 def test_tpu_choices_are_accepted_and_ignored():
-    args = train_cli.build_parser().parse_args(["--ada_warp_fwd", "matmul", "--platform", "tpu"])
-    train_cli._refuse_unported(args)
+    args = train_cli.build_parser().parse_args(["--ada_warp_fwd", "matmul", "--platform", "tpu",
+                                                "--device", "cpu"])
+    assert train_cli.world_size(args, torch.device("cpu")) == 1
     assert "ignored" in train_cli.build_parser().format_help()
 
 
