@@ -13,7 +13,9 @@ beside it.  Phases, each raising on failure:
 2. kernels  - hold K1 and K3 against their plain PyTorch versions on the
               card, in f32 and bf16, at every call-site shape of the
               sampling path at batch 16, with times; K3 and its adjoint
-              (K4) at edge cases aimed at each of upfirdn2d's variants.
+              (K4) at edge cases aimed at each of upfirdn2d's variants;
+              K1-K4 on zero rows (M = 0, N = 0: a data rank's empty share
+              of a batch): empty results and no launch.
 3. sample   - the sampling CLI (``multi_stylegan_torch.cli.sample``, full
               256x256 generator, 32 samples at batch 16, random weights)
               with the launch counts zeroed just before: PNGs, finiteness,
@@ -110,6 +112,13 @@ beside it.  Phases, each raising on failure:
               against one process at batch 4: the gathered gradients, the
               metrics, what each rank holds whole bitwise across the ranks,
               each rank's launches the one-process iteration's.
+10c. ddp_uneven - four data ranks sharing the card (gloo) at the published
+              widths, f32, global batch 12: 3 training rows a rank, the
+              wrong-order rows [1, 1, 1, 0] and the path-length rows
+              [2, 2, 1, 1] (batch 24 over 8 ranks at half the ranks); the
+              same checks against one process at batch 12, each rank's
+              launches the one-process iteration's but rank 3's D step,
+              which launches what it would without wrong order.
 11. ddp_cli - ``cli.train --devices 2`` at the tiny config (two ranks on the
               card): 2 epochs with a checkpoint each, then a resume of the
               first for 1 epoch on 2 ranks; one writer, the resume bitwise
@@ -129,8 +138,8 @@ one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 In the kernels line ``launches`` sums the main-path runs (sampling CLI,
 training CLI, the f32 and bf16 iterations, the sequential + fft main step,
 the path-length ladder's update, the training run with its resume, the
-training and sampling CLIs of phase 8, the interpolation CLI, both ranks of
-phases 10 and 10b, every rank of phase 11's two runs, the teacher run), each counted
+training and sampling CLIs of phase 8, the interpolation CLI, every rank of
+phases 10, 10b and 10c, every rank of phase 11's two runs, the teacher run), each counted
 from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
 per f32 regularised training iteration at batch 24: each training call
 site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
@@ -424,7 +433,54 @@ def phase_kernels(seed: int):
     check("fused_leaky_relu ragged", fused_act.fused_leaky_relu(x, bias, 0.2, 2.0 ** 0.5),
           fused_act.fused_leaky_relu_ref(x, bias, 0.2, 2.0 ** 0.5), "float32")
     report["upfirdn2d_edge_max_abs_err"] = edge_err
+    report["zero_rows"] = zero_row_checks(dev)
     return report
+
+
+def zero_row_checks(dev) -> dict:
+    """A data rank's empty share of a batch (phase ddp_uneven's rank 3 in
+    its D step on the wrong-order rows) through each kernel's wrapper, in
+    f32 and bf16: K1 and K3 at each tiled up/down form on M = 0 / N = 0,
+    their gradients (K2 with its bias sum, K4) and gradients of gradients
+    (the dx-only K2, K3 again).  Every result empty and of the right shape
+    and dtype, K2's bias sum exact zeros, and no kernel launched."""
+    import torch
+
+    from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
+    from multi_stylegan_torch.ops.blur import make_blur_kernel
+
+    def counts():
+        return (*read_counts().values(), fused_act.grad_dx_only_launches)
+
+    before, shapes = counts(), {}
+    taps = make_blur_kernel((1, 3, 3, 1), 1.0, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.empty((0, 16, 16, 512), device=dev, dtype=dt, requires_grad=True)
+        bias = torch.randn(512, device=dev, requires_grad=True)
+        y = fused_act.fused_leaky_relu(x, bias)
+        v = torch.randn(y.shape, device=dev, dtype=dt, requires_grad=True)
+        gx, gb = torch.autograd.grad((y * v).sum(), [x, bias], create_graph=True)
+        (gv,) = torch.autograd.grad(gx.float().square().sum() + gb.square().sum(), v)
+        if not (y.shape == gx.shape == gv.shape == x.shape and y.dtype == gx.dtype == dt
+                and torch.equal(gb, torch.zeros_like(gb))):
+            raise AssertionError(f"K1/K2 on zero rows: {y.shape} {gx.shape} {gv.shape} {gb}")
+        shapes["K1/K2 " + str(dt)] = list(y.shape)
+        for up, down, pad in ((1, 1, (2, 1)), (2, 1, (2, 1)), (1, 2, (1, 1))):
+            y = up_mod.upfirdn2d(x, taps, up, down, pad)
+            ho = up_mod.out_size(16, up, down, pad[0], pad[1], 4)
+            v = torch.randn(y.shape, device=dev, dtype=dt, requires_grad=True)
+            (gx,) = torch.autograd.grad((y * v).sum(), x, create_graph=True)
+            (gv,) = torch.autograd.grad(gx.float().square().sum(), v)
+            if not (y.shape == (0, ho, ho, 512) and y.dtype == dt and gx.shape == x.shape
+                    and gv.shape == y.shape):
+                raise AssertionError(f"K3/K4 up {up} down {down} on zero rows: {y.shape}")
+            shapes[f"K3/K4 up{up}-down{down} {dt}"] = list(y.shape)
+    after = counts()
+    if after != before:
+        raise AssertionError(f"zero rows launched kernels: {before} -> {after}")
+    out = {"shapes": shapes, "launches": [a - b for a, b in zip(after, before)]}
+    print("zero_rows", json.dumps(out), flush=True)
+    return out
 
 
 # -------------------------------------------------------------------- slice
@@ -2005,8 +2061,9 @@ def ddp_iteration(seed: int, batch: int = TRAIN_BATCH) -> dict:
     the Trainer's ladder.  Returns the state, every update's gradients
     (device copies, gathered whole), the metrics, each sub-step's seconds,
     launches and collectives (seconds, count, MiB), the ladder's tier, the
-    launches and the peak memory.  A new process's first iteration includes
-    Triton's builds and cuDNN's choices."""
+    launches and the peak memory, and this rank's rows of the training,
+    wrong-order and path-length batches.  A new process's first iteration
+    includes Triton's builds and cuDNN's choices."""
     import torch
     import torch.distributed as dist
 
@@ -2033,6 +2090,9 @@ def ddp_iteration(seed: int, batch: int = TRAIN_BATCH) -> dict:
     real = mesh.shard(real_batch(batch, gcfg.resolution, seed + 13)).to(DEVICE)
     ladder = RobustPathLength(ts)
     flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
+    rows = {what: mesh.counts(n)[mesh.rank()] for what, n in (
+        ("train", batch), ("wrong", ts.wrong_order_batch(batch)),
+        ("path_length", ts.path_length_batch(batch)))}
     updates, seconds, reduce_s, current = [], {}, {}, [None]
     reduce_n, reduce_mib, sub_launches = {}, {}, {}
 
@@ -2094,7 +2154,7 @@ def ddp_iteration(seed: int, batch: int = TRAIN_BATCH) -> dict:
     gathered = [[None if g is None else tp.full_tensor(g, d) for g, d in zip(u, opt.shard_dims)]
                 for opt, u in updates]
     out.update(state=state, updates=gathered, metrics=metrics, tier=ladder.chunks,
-               launches=counts, peak_memory_gib=peak)
+               launches=counts, peak_memory_gib=peak, rows=rows)
     return out
 
 
@@ -2147,7 +2207,7 @@ def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str, n_mod
     try:
         run = ddp_iteration(seed, batch=batch)
         keys = ("metrics", "seconds", "all_reduce_s", "all_reduces", "all_reduce_mib", "tier",
-                "launches", "sub_step_launches", "peak_memory_gib")
+                "launches", "sub_step_launches", "peak_memory_gib", "rows")
         summary = {k: run[k] for k in keys}
         summary.update(backend=backend, bitwise_equal=ranks_bitwise_equal(run["state"]))
         if rank == 0:
@@ -2167,9 +2227,12 @@ def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int
     before the ranks start): every update's gathered gradient within
     GRAD_TOL of its peak, every rank's metrics within 1e-3 relative, what
     each rank holds whole the same bits on every rank, and each rank's K1-K4
-    launches those of the one-process iteration, sub-step by sub-step (and
-    ``counts``, when given).  Per rank: each sub-step's seconds, its
-    collectives' seconds, count and MiB, and its launches."""
+    launches, sub-step by sub-step, those of the one-process iteration but
+    where it holds no rows of a sub-batch (:func:`rank_launches`); the
+    one-process iteration's those of phase train_iteration (``counts``,
+    when given).  Per rank: its rows of each sub-batch, each sub-step's
+    seconds, its collectives' seconds, count and MiB, its launches and its
+    peak memory."""
     import torch
 
     ref = ddp_iteration(seed, batch=batch)
@@ -2212,17 +2275,32 @@ def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int
     print(name, json.dumps(row), flush=True)
     if any(e > 1e-3 for errs in metric_err for e in errs.values()):
         raise AssertionError(f"{name} metrics off the one-process ones: {metric_err}")
+    if counts not in (None, ref_row["launches"]):
+        raise AssertionError(f"{name}: one process launched {ref_row['launches']}, phase "
+                             f"train_iteration {counts}")
     for r, rank in enumerate(ranks):
         if not rank["bitwise_equal"] or rank["tier"] != 1:
             raise AssertionError(f"{name} rank {r}: equal={rank['bitwise_equal']}, "
                                  f"tier {rank['tier']}")
-        if (rank["sub_step_launches"] != ref_row["sub_step_launches"]
-                or rank["launches"] != ref_row["launches"]
-                or counts not in (None, ref_row["launches"])):
-            raise AssertionError(f"{name} rank {r} launches {rank['launches']}, one process "
-                                 f"{ref_row['launches']}, phase train_iteration {counts}")
+        want = rank_launches(ref_row["sub_step_launches"], rank["rows"])
+        total = {k: ref_row["launches"][k] + sum(
+            want[s][k] - ref_row["sub_step_launches"][s][k] for s in want) for k in KERNELS}
+        if rank["sub_step_launches"] != want or rank["launches"] != total:
+            raise AssertionError(f"{name} rank {r} ({rank['rows']} rows) launches "
+                                 f"{rank['sub_step_launches']}, expected {want}")
     empty_cache()
     return {k: sum(rank["launches"][k] for rank in ranks) for k in KERNELS}, row
+
+
+def rank_launches(one_process: dict, rows: dict) -> dict:
+    """A rank's K1-K4 launches per sub-step: the one-process iteration's
+    ``one_process``, but a rank that holds no wrong-order rows (``rows``)
+    runs its D step's wrong-order pass on zero rows, which launch nothing,
+    so that step launches what it would without wrong order."""
+    want = dict(one_process)
+    if not rows["wrong"]:
+        want["d_step"] = expected_launches(*train_configs(), "d_step", wrong_order=False)
+    return want
 
 
 def phase_ddp(seed: int, iteration_counts: dict) -> tuple:
@@ -2241,6 +2319,22 @@ def phase_tp(seed: int) -> tuple:
     the f32 regularised iteration at the published widths and global batch
     ``TP_BATCH`` (:func:`spawned_iteration`)."""
     return spawned_iteration("tp", seed, 2, 2, TP_BATCH)
+
+
+UNEVEN_WORLD, UNEVEN_BATCH = 4, 12  # the reference batch 24 over 8 ranks, at half of both
+
+
+def phase_ddp_uneven(seed: int) -> tuple:
+    """Four data ranks on the one card (gloo) at the published widths and
+    global batch 12 (:func:`spawned_iteration`): 3 training rows a rank,
+    the wrong-order rows [1, 1, 1, 0] and the path-length rows [2, 2, 1, 1],
+    as the reference batch 24 falls over 8 ranks.  Rank 3's D step runs
+    its wrong-order pass on zero rows."""
+    counts, row = spawned_iteration("ddp_uneven", seed, UNEVEN_WORLD, 1, UNEVEN_BATCH)
+    layout = {k: [r["rows"][k] for r in row["ranks"]] for k in ("train", "wrong", "path_length")}
+    if layout != {"train": [3, 3, 3, 3], "wrong": [1, 1, 1, 0], "path_length": [2, 2, 1, 1]}:
+        raise AssertionError(f"ddp_uneven: the rows fell as {layout}")
+    return counts, row
 
 
 COUNTS_DIR_ENV = "CHIP_SMOKE_COUNTS_DIR"
@@ -2533,6 +2627,7 @@ def main() -> int:
         interp_counts, interp_row = phase("interpolate", phase_interpolate, args.seed, pt, work)
         ddp_counts, ddp_row = phase("ddp", phase_ddp, args.seed, iter_counts)
         tp_counts, tp_row = phase("tp", phase_tp, args.seed)
+        uneven_counts, uneven_row = phase("ddp_uneven", phase_ddp_uneven, args.seed)
         ddp_cli_counts, ddp_cli_row = phase("ddp_cli", phase_ddp_cli, args.seed)
         teacher_counts, teacher_row = phase("teacher", phase_teacher, args.seed, work)
 
@@ -2542,7 +2637,8 @@ def main() -> int:
                "train_iteration": iter_counts, "bf16_iteration": bf16_counts,
                "sequential_fft": seq_counts, "pl_ladder": pl_counts, "train_run": run_counts,
                "reference": ref_counts, "interpolate": interp_counts, "ddp": ddp_counts,
-               "tp": tp_counts, "ddp_cli": ddp_cli_counts, "teacher": teacher_counts}
+               "tp": tp_counts, "ddp_uneven": uneven_counts, "ddp_cli": ddp_cli_counts,
+               "teacher": teacher_counts}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
@@ -2562,7 +2658,8 @@ def main() -> int:
              "k2_edge": k2_edge_row,
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
              "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
-             "ddp": ddp_row, "tp": tp_row, "ddp_cli": ddp_cli_row, "teacher": teacher_row,
+             "ddp": ddp_row, "tp": tp_row, "ddp_uneven": uneven_row, "ddp_cli": ddp_cli_row,
+             "teacher": teacher_row,
              "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))
     print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)

@@ -25,7 +25,9 @@ them, both Adam states and the path-length mean).  Runs on the GPU unless
 Data and tensor parallelism (parallel/mesh.py, parallel/tensor.py): the
 ranks form the JAX mesh of ``--devices`` data ranks by ``--model_parallel``
 model ranks.  Each data rank trains on its rows of every global batch of
-``--batch_size`` (which ``--devices`` must divide); the ``--model_parallel``
+``--batch_size`` (which ``--devices`` must divide, as the JAX mesh requires;
+the wrong-order and path-length rows, a quarter and a half of it, may fall
+unevenly, a rank holding none); the ``--model_parallel``
 ranks of a data row split the conv weights' output channels between them
 (the JAX ``state_shardings`` rule).  ``--devices`` defaults to the visible
 cards divided by ``--model_parallel``, or 1 under ``--device cpu``.  Without
@@ -79,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--devices", default=None, type=int,
                         help="Number of data-parallel ranks (default: every visible card, "
-                             "1 under --device cpu); --batch_size is the global batch.")
+                             "1 under --device cpu); --batch_size is the global batch and "
+                             "must divide over them (the wrong-order and path-length rows "
+                             "need not).")
     parser.add_argument("--model_parallel", default=1, type=int,
                         help="Tensor-parallel size: ranks that split each conv weight's "
                              "output channels (the JAX mesh's model axis).")

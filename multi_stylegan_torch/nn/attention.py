@@ -62,7 +62,7 @@ class NonLocalBlock(nn.Module):
         logits = torch.bmm(theta.float(), phi.float())               # [B, HW, HW/4]
         beta = torch.softmax(logits, dim=-1).to(x.dtype)
         attended = torch.bmm(beta.float(), g.float()).to(x.dtype)    # [B, HW, C/2]
-        attended = attended.transpose(1, 2).reshape(b, -1, h, w)
+        attended = attended.transpose(1, 2).reshape(b, attended.shape[-1], h, w)
         attended = attended.contiguous(memory_format=torch.channels_last)
         o = self.o(attended)
         res = x if self.residual_mapping is None else self.residual_mapping(x)

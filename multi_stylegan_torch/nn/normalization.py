@@ -24,15 +24,19 @@ def minibatch_std_dev(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 
     Statistics in f32: under bf16, tiny variances quantize to the eps clamp
     where sqrt's second derivative explodes (R1's grad-of-grad).  Under data
-    parallelism the batch is this call's global batch (parallel/mesh.py):
-    the mean, then the mean of (x - mean)^2, each a differentiable sum over
-    the ranks, so R1 differentiates through both twice."""
+    parallelism the batch is this call's global batch (parallel/mesh.py),
+    whose rows may fall unevenly (a rank may hold none): the mean, then the
+    mean of (x - mean)^2, each a differentiable sum over the ranks, so R1
+    differentiates through both twice; the global row count rides in the
+    first sum."""
     x32 = x.float()
     if mesh.world() == 1:
         var = (x32 - x32.mean(dim=0, keepdim=True)).square().mean(dim=0)
     else:
-        n = x.shape[0] * mesh.world()
-        mean = mesh.all_sum(x32.sum(dim=0, keepdim=True)) / n
+        first = mesh.all_sum(torch.cat([x32.sum(dim=0).reshape(-1),
+                                        x32.new_tensor([float(x.shape[0])])]))
+        n = first[-1].detach()
+        mean = first[:-1].view(1, *x.shape[1:]) / n
         var = mesh.all_sum((x32 - mean).square().sum(dim=0)) / n
     stat = torch.sqrt(torch.clamp(var, min=eps)).mean().to(x.dtype)
     b, _, h, w = x.shape

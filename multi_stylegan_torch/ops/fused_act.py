@@ -23,7 +23,10 @@ dtype, and the bias grad is the f32 row sum of that stored ``dx``.  Two
 Each op has two versions: plain PyTorch (:func:`fused_leaky_relu_ref`,
 :func:`fused_leaky_relu_grad_ref`), which CPU tensors use and the kernels are
 held against, and a kernel for CUDA tensors.  A CUDA tensor launches the
-kernel or raises; there is no fallback.
+kernel or raises; there is no fallback.  A tensor with no rows (a data
+rank's empty share of a batch) gives the empty result, and K2 a zero bias
+grad, without a launch: there is no work, and a zero-size grid cannot
+launch.  Any other empty tensor raises.
 
 * K1 replaces ``multi_stylegan_tpu/ops/pallas_kernels.py::_flr_fwd_kernel``.
   It reads ``x`` once and writes ``y`` once (4 f32 operations per element
@@ -213,10 +216,17 @@ def _kernels():
     return _KERNELS
 
 
+def no_rows(t: torch.Tensor) -> bool:
+    """Whether ``t`` is empty only for having no rows: its first dim 0 and
+    every other dim, the channels among them, nonzero (a data rank's share
+    of a batch that fell unevenly, parallel/mesh.py)."""
+    return t.dim() >= 2 and t.shape[0] == 0 and all(n > 0 for n in t.shape[1:])
+
+
 def _check_2d(name, t):
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: unsupported dtype {t.dtype}")
-    if t.dim() < 1 or t.numel() == 0:
+    if t.dim() < 1 or (t.numel() == 0 and not no_rows(t)):
         raise ValueError(f"{name}: empty or 0-d input {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(
@@ -240,6 +250,8 @@ def _fused_leaky_relu_cuda(x, bias, negative_slope, scale):
         )
     bias = bias.detach().contiguous()
     y = torch.empty_like(x)
+    if m == 0:  # no rows: nothing to compute, and a zero-size grid cannot launch
+        return y
     block_c = min(_next_pow2(c), 256)
     block_m = max(1, 4096 // block_c)
     grid = (-(-m // block_m), -(-c // block_c))
@@ -359,6 +371,8 @@ def _fused_leaky_relu_grad_cuda(g, out, negative_slope, scale, addend=None, need
             f"{g.device}, got {addend.dtype} {tuple(addend.shape)} on {addend.device}")
     device = g.device
     dx = torch.empty_like(g)
+    if m == 0:  # no rows: an empty dx, a zero bias sum, and no launch
+        return dx, (torch.zeros((c,), dtype=torch.float32, device=device) if need_db else None)
     db = torch.empty((c,), dtype=torch.float32, device=device) if need_db else None
     aligned = (g.data_ptr() | out.data_ptr() | dx.data_ptr()) % 16 == 0
     plan = _grad_plan(m, c, g.dtype, aligned, _sm_count(device), bool(need_db))

@@ -28,7 +28,8 @@ and the adjoint pads, and it is itself a Function whose backward is the
 forward op again.  Both directions launch the same kernel (K3 forward, K4
 backward, counted apart), so grad-of-grad for R1 and path length runs on
 the card to any order.  A CUDA tensor launches the kernel or raises; there is
-no fallback.
+no fallback.  A batch of no rows (a data rank's empty share) gives the
+empty result without a launch; any other empty extent raises.
 """
 
 from __future__ import annotations
@@ -244,11 +245,13 @@ def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
         raise ValueError(f"upfirdn2d: at most 4096 taps, got {kh}x{kw}")
     ho = out_size(h, up, down, py0, py1, kh)
     wo = out_size(w, up, down, px0, px1, kw)
-    if ho <= 0 or wo <= 0 or b == 0 or c == 0:
-        raise ValueError(f"upfirdn2d: empty output {b}x{ho}x{wo}x{c}")
+    if ho <= 0 or wo <= 0 or h == 0 or w == 0 or c == 0:
+        raise ValueError(f"upfirdn2d: empty input or output {tuple(x.shape)} -> {b}x{ho}x{wo}x{c}")
     if wo * c > _INT_MAX or b * max(h, ho) > _INT_MAX or max(h, w) * up > _INT_MAX:
         raise ValueError(f"upfirdn2d: shape {tuple(x.shape)} exceeds the kernel's int range")
     y = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
+    if b == 0:  # no rows: nothing to compute, and a zero-size grid cannot launch
+        return y
     variant = _plan(x.shape, x.dtype, up, down, kh, kw, pad, (x.data_ptr(), y.data_ptr()))
     with torch.cuda.device(x.device):
         rc = _library().upfirdn2d_nhwc(

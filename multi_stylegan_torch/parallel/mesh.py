@@ -14,8 +14,12 @@ numbers with explicit collectives:
   standard deviation) goes through ``all_sum``, whose backward is itself an
   all-reduce, so R1's double backward crosses it;
 * a rank owns a contiguous block of every global batch, process-major
-  (``rows``), as the JAX ``per_host_batch`` lays out a global array; every
-  sharded batch must divide evenly over the ranks;
+  (``rows``), as the JAX ``per_host_batch`` lays out a global array.  A
+  batch need not divide over the ranks: the first ``n % world`` ranks hold
+  one row more (``numpy.array_split``'s rule), and a rank may hold none.
+  Every reduction divides by the global count, which rides in the same
+  all-reduce as the sums, and a rank with no rows still enters every
+  collective with exact zeros;
 * ranks start from the same state (``broadcast_state``) and stay bitwise
   replicas: the reduced values are the same bits on every rank.
 
@@ -42,6 +46,7 @@ collective runs.
 from __future__ import annotations
 
 import datetime
+import math
 import pickle
 from typing import Any, List, Optional, Sequence
 
@@ -143,13 +148,19 @@ def barrier() -> None:
 # ----------------------------------------------------------------- rows
 
 
+def counts(n: int) -> List[int]:
+    """The rows of a global batch of ``n`` each data rank owns, in rank
+    order: the first ``n % world`` ranks one more (``numpy.array_split``)."""
+    per, extra = divmod(n, world())
+    return [per + (r < extra) for r in range(world())]
+
+
 def rows(n: int) -> slice:
-    """The rows of a global batch of ``n`` this rank owns, process-major."""
-    w = world()
-    if n % w:
-        raise ValueError(f"a global batch of {n} rows does not divide over {w} ranks")
-    per = n // w
-    return slice(rank() * per, (rank() + 1) * per)
+    """The rows of a global batch of ``n`` this rank owns, process-major
+    (:func:`counts`; the block may be empty)."""
+    c = counts(n)
+    start = sum(c[:rank()])
+    return slice(start, start + c[rank()])
 
 
 def shard(x: torch.Tensor) -> torch.Tensor:
@@ -157,22 +168,28 @@ def shard(x: torch.Tensor) -> torch.Tensor:
     return x if world() == 1 else x[rows(x.shape[0])]
 
 
-def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """The global tensor whose rows the ranks hold as ``x`` (not
-    differentiable): each rank writes its rows into zeros, then a sum."""
+def gather_rows(x: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """The global tensor of ``n`` rows whose rows the ranks hold as ``x``
+    (not differentiable; ``n`` defaults to an even layout's
+    ``x.shape[0] * world``): each rank writes its rows into zeros, then a
+    sum."""
     w = world()
     if w == 1:
         return x
-    full = torch.zeros((x.shape[0] * w, *x.shape[1:]), dtype=x.dtype, device=x.device)
-    full[rows(full.shape[0])] = x.detach()
+    n = x.shape[0] * w if n is None else n
+    mine = rows(n)
+    if mine.stop - mine.start != x.shape[0]:
+        raise ValueError(f"{x.shape[0]} rows are not rank {rank()}'s share of {n}")
+    full = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    full[mine] = x.detach()
     dist.all_reduce(full, group=_DATA_GROUP)
     return full
 
 
 def head_rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """This rank's share of the first ``n`` global rows of the batch whose
-    rows the ranks hold as ``x``, re-sharded so every rank owns ``n / world``
-    of them (the wrong-order batch: the first rows all live on rank 0)."""
+    """This rank's share (``rows(n)``) of the first ``n`` global rows of the
+    batch whose rows the ranks hold as ``x``, an even layout (the
+    wrong-order batch: the first rows all live on the first ranks)."""
     if world() == 1:
         return x[:n]
     lo = rank() * x.shape[0]
@@ -218,15 +235,23 @@ def _straight_through(parts: torch.Tensor) -> torch.Tensor:
 
 
 def global_mean(*xs: torch.Tensor):
-    """The mean of each ``x`` over the global batch (one all-reduce for all
-    of them): its value on every rank, and the gradient of this rank's rows'
-    share.  ``x.mean()`` alone."""
-    w = world()
-    if w == 1:
+    """The mean of each ``x`` (rows on dim 0) over the global batch, in one
+    all-reduce of the sums and the row counts: its value on every rank, and
+    the gradient of this rank's rows' share (a rank with no rows adds exact
+    zeros).  ``x.mean()`` alone."""
+    if world() == 1:
         out = [x.mean() for x in xs]
     else:
-        out = list(_straight_through(torch.stack(
-            [x.sum() / (x.numel() * w) for x in xs])).unbind(0))
+        sums = torch.stack([x.sum() for x in xs])
+        # f32 at least: the row counts are exact integers
+        dt = torch.promote_types(sums.dtype, torch.float32)
+        local = torch.cat([sums.to(dt), torch.tensor([float(x.shape[0]) for x in xs],
+                                                     dtype=dt, device=sums.device)])
+        both = _straight_through(local)
+        per_row = torch.tensor([float(math.prod(x.shape[1:])) for x in xs], dtype=dt,
+                               device=sums.device)
+        out = list((both[:len(xs)] / (both[len(xs):].detach() * per_row)).to(sums.dtype)
+                   .unbind(0))
     return out[0] if len(out) == 1 else tuple(out)
 
 
@@ -265,34 +290,47 @@ def any_rank(flag: bool, device: torch.device) -> bool:
 
 
 def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]],
-                     shard_dims: Optional[Sequence[Optional[int]]] = None
+                     shard_dims: Optional[Sequence[Optional[int]]] = None,
+                     params: Optional[Sequence[torch.Tensor]] = None
                      ) -> List[Optional[torch.Tensor]]:
     """The gradients summed over the data axis, one flat bucket per kind (the
-    models' parameters are all f32); a None (an unused parameter, the same
-    on every rank) stays None.  ``shard_dims`` marks the tensor-parallel
-    slices (parallel/tensor.py): those sum over the data axis alone, while
-    every replicated gradient sums over all ranks and is divided by the
-    model axis, so each model rank applies the same bits even where its
-    backward added in another order (cuDNN's atomics)."""
+    models' parameters are all f32).  A None (an unused parameter) stays
+    None, and must be None on every rank unless ``params`` (aligned with
+    ``grads``) is given: then a gradient may be None on some ranks only
+    (autograd gives None where a rank's zero rows never reach a parameter,
+    :func:`rows`), is sent as zeros of its parameter's shape with a flag a
+    gradient in the same bucket, and comes back None where it was None on
+    every rank (one host read of the flags).  ``shard_dims`` marks the
+    tensor-parallel slices (parallel/tensor.py): those sum over the data
+    axis alone, while every replicated gradient sums over all ranks and is
+    divided by the model axis, so each model rank applies the same bits
+    even where its backward added in another order (cuDNN's atomics)."""
     grads = list(grads)
     if process_count() == 1:
         return grads
     dims = shard_dims or [None] * len(grads)
-    replicated = [i for i, g in enumerate(grads) if g is not None and dims[i] is None]
-    sliced = [i for i, g in enumerate(grads) if g is not None and dims[i] is not None]
+    like = params or grads
     out = list(grads)
-    for idx, group, n in ((replicated, None, _N_MODEL),
-                          (sliced if world() > 1 else [], _DATA_GROUP, 1)):
+    for sliced, group, n in ((False, None, _N_MODEL), (True, _DATA_GROUP, 1)):
+        if sliced and world() == 1:
+            continue
+        idx = [i for i in range(len(grads)) if (dims[i] is not None) == sliced
+               and (params is not None or grads[i] is not None)]
         if not idx:
             continue
-        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        parts = [grads[i].reshape(-1) if grads[i] is not None
+                 else torch.zeros_like(like[i]).reshape(-1) for i in idx]
+        if params is not None:
+            parts.append(parts[0].new_tensor([float(grads[i] is not None) for i in idx]))
+        flat = torch.cat(parts)
         dist.all_reduce(flat, group=group)
         if n > 1:
             flat.div_(n)
+        seen = flat[-len(idx):].tolist() if params is not None else [1.0] * len(idx)
         at = 0
-        for i in idx:
-            out[i] = flat[at:at + grads[i].numel()].view_as(grads[i])
-            at += grads[i].numel()
+        for i, s in zip(idx, seen):
+            out[i] = flat[at:at + like[i].numel()].view(like[i].shape) if s > 0 else None
+            at += like[i].numel()
     return out
 
 

@@ -99,7 +99,7 @@ def r1_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
     scalar, pixel = d_fn(x)
     s = scalar.sum() + pixel.sum() if use_pixel_head else scalar.sum()
     (grad,) = torch.autograd.grad(s, x, create_graph=True)
-    return 0.5 * mesh.global_mean(grad.reshape(grad.shape[0], -1).square().sum(dim=1))
+    return 0.5 * mesh.global_mean(grad.flatten(1).square().sum(dim=1))
 
 
 def r2_penalty(d_fn: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]],

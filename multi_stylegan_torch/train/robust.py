@@ -27,11 +27,13 @@ collectives stop matching.  Each try then runs
 :meth:`TrainStep.path_length_sums` (no collective), all ranks exchange a
 failure flag (a MAX all-reduce), and only when no rank failed do they reduce
 the sums (:meth:`TrainStep.path_length_from_sums`); a failure on any rank
-demotes every rank.  Under tensor parallelism the sums stage itself
-gathers channels over the model group (parallel/tensor.py), so an
-out-of-memory error that strikes one model rank alone inside it leaves the
-others waiting at a gather until the process group's timeout; the ranks of
-a model group run the same shapes, so their memory use is the same.
+demotes every rank.  The tiers come from the global path-length batch, so
+every rank walks the same ladder whatever its share of the rows.  Under
+tensor parallelism the sums stage itself gathers channels over the model
+group (parallel/tensor.py), so an out-of-memory error that strikes one
+model rank alone inside it leaves the others waiting at a gather until the
+process group's timeout; the ranks of a model group run the same shapes, so
+their memory use is the same.
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ class RobustPathLength:
     def __init__(self, step, report: Callable[[str], None] = print) -> None:
         self.step = step
         self.report = report
-        self.tiers = (1,) + pl_chunk_tiers(
-            step.path_length_batch(step.cfg.batch_size) // mesh.world())
+        # JAX robust.py:37-48; a rank's rows split into each tier's chunks
+        # (train/steps.py::path_length_sums), some empty where it holds few
+        self.tiers = (1,) + pl_chunk_tiers(step.path_length_batch(step.cfg.batch_size))
         self.index = 0  # into tiers; len(tiers) once every tier has failed
 
     @property

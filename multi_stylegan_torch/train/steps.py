@@ -35,7 +35,10 @@ steps.py:426-514).  Port decisions:
   over the ranks before the update; the wrong-order rows (the first of the
   global batch, all on the first ranks) are re-sharded over every rank
   before their D forward, so no rank skips a forward that the others
-  reduce across;
+  reduce across.  Only the training batch must divide over the ranks: the
+  wrong-order and path-length rows, and their draws, fall as
+  ``mesh.rows`` lays them out, and a rank may hold none (its forwards then
+  run on zero rows and add exact zeros to every reduction);
 * under tensor parallelism (parallel/tensor.py) the ranks of a model group
   hold the same rows and draws and run the same step on their blocks of the
   sharded parameters; the update's replicated gradients are averaged over
@@ -77,6 +80,7 @@ class PathLengthDraws:
     inject: torch.Tensor
     noise: List[torch.Tensor]
     probe: torch.Tensor
+    batch: Optional[int] = None  # the global rows (None: the probe's, in one process)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,11 +132,12 @@ class TrainStep:
         wplus = self.build_wplus(generator, batch, draws)
         return generator.synthesize(wplus, draws.noise(batch, generator._noise_shapes()))
 
-    def _d_ada(self, state: TrainState, images: torch.Tensor, draws):
-        b, _, _, h, w = images.shape
+    def _d_ada(self, state: TrainState, images: torch.Tensor, n: int, draws):
+        """D on ADA-augmented ``images``, this rank's rows of a global batch
+        of ``n`` (the draws are the global batch's)."""
+        h, w = images.shape[-2:]
         return state.discriminator(augment_sequences(
-            images, draws.ada(b * mesh.world(), h, w, state.ada.p),
-            self.cfg.ada_sequential_warps))
+            images, draws.ada(n, h, w, state.ada.p), self.cfg.ada_sequential_warps))
 
     def _update_ada(self, state: TrainState, r: torch.Tensor) -> None:
         cfg = self.cfg
@@ -158,14 +163,12 @@ class TrainStep:
         return max(1, int(self.cfg.batch_factor_wrong_order * b))
 
     def check_shards(self, b: int) -> None:
-        """Raise unless every batch the step splits over the data axis at a
-        (global) training batch of ``b`` divides evenly (parallel/mesh.py)."""
+        """Raise unless a (global) training batch of ``b`` divides over the
+        data axis, as the JAX mesh requires; the wrong-order and path-length
+        rows may fall unevenly (parallel/mesh.py::rows)."""
         w = mesh.world()
-        for what, n in (("batch", b), ("path-length batch", self.path_length_batch(b)),
-                        ("wrong-order batch", self.wrong_order_batch(b))):
-            if n % w:
-                raise ValueError(f"the {what} of {n} rows (training batch {b}) does not "
-                                 f"divide over {w} ranks")
+        if b % w:
+            raise ValueError(f"the training batch {b} does not divide over {w} data ranks")
 
     # -------------------------------------------------------------- D step
 
@@ -178,12 +181,12 @@ class TrainStep:
         with torch.no_grad():
             fakes = self.sample_fakes(state.generator, b, draws)
         perm = draws.permutation(real.shape[2])
-        pr_s, pr_p = self._d_ada(state, real, draws)
-        pf_s, pf_p = self._d_ada(state, fakes, draws)
+        pr_s, pr_p = self._d_ada(state, real, b, draws)
+        pf_s, pf_p = self._d_ada(state, fakes, b, draws)
         all_s, all_p = pf_s, pf_p
         if wrong_order:
             wrong = mesh.head_rows(real, n_wrong).index_select(2, perm)
-            pw_s, pw_p = self._d_ada(state, wrong, draws)
+            pw_s, pw_p = self._d_ada(state, wrong, n_wrong, draws)
             all_s, all_p = torch.cat([pf_s, pw_s]), torch.cat([pf_p, pw_p])
         l_real, l_fake = losses.non_saturating_discriminator_loss(pr_s, all_s)
         l_real_px, l_fake_px = losses.non_saturating_discriminator_loss(
@@ -243,7 +246,7 @@ class TrainStep:
             v = 1.0
         fakes = self.sample_fakes(state.generator, batch, draws)
         b = fakes.shape[0]
-        pf_s, pf_p = self._d_ada(state, fakes, draws)
+        pf_s, pf_p = self._d_ada(state, fakes, batch, draws)
         mask, k = losses.top_k_mask(pf_s, v)
         loss_scalar = mesh.global_total(F.softplus(-pf_s) * mask) / k
         per_elem = pf_p.numel() // b
@@ -272,7 +275,7 @@ class TrainStep:
         inject = draws.inject_index(gcfg.n_latents)
         probe = draws.path_length_probe(
             (bs, gcfg.num_domains, gcfg.sequence_length, *gcfg.resolution))
-        return PathLengthDraws(latents, inject, noise, probe)
+        return PathLengthDraws(latents, inject, noise, probe, bs)
 
     def _path_length_grads_wrt_wplus(self, generator, pld: PathLengthDraws,
                                      rows: slice = slice(None)) -> torch.Tensor:
@@ -313,39 +316,50 @@ class TrainStep:
         return self.path_length_from_sums(state, *self.path_length_sums(state, pld, n_chunks))
 
     def path_length_sums(self, state: TrainState, pld: PathLengthDraws, n_chunks: int):
-        """(G's parameter gradients of sum_i pl_i, sum_i pl_i) over this
-        rank's rows of the draws, in ``n_chunks`` slices; no collective, so a
-        rank that runs out of memory here leaves the others waiting at
-        nothing (train/robust.py)."""
+        """(G's parameter gradients of sum_i pl_i, sum_i pl_i, the global
+        path-length batch) over this rank's rows of the draws, in
+        ``n_chunks`` slices of them (the first ones a row longer where they
+        do not divide); no collective, so a rank that runs out of memory
+        here leaves the others waiting at nothing (train/robust.py).  An
+        empty slice runs nothing, but a rank without rows runs its one empty
+        slice."""
         params = state.g_opt.params
         bs = pld.probe.shape[0]
-        if bs % n_chunks:
-            raise ValueError(f"path-length batch {bs} is not divisible into {n_chunks} chunks")
-        cbs = bs // n_chunks
+        n = bs if pld.batch is None else pld.batch
+        if n % n_chunks:
+            raise ValueError(f"path-length batch {n} is not divisible into {n_chunks} chunks")
         acc: List[Optional[torch.Tensor]] = [None] * len(params)
         total = torch.zeros((), device=pld.probe.device)
+        per, extra = divmod(bs, n_chunks)
+        start = 0
         for i in range(n_chunks):
-            rows = slice(i * cbs, (i + 1) * cbs)
+            rows = slice(start, start + per + (i < extra))
+            start = rows.stop
+            if i and rows.stop == rows.start:  # the empty slices come last
+                break
             s = losses.per_sample_path_lengths(
                 self._path_length_grads_wrt_wplus(state.generator, pld, rows)).sum()
             for k, g in enumerate(torch.autograd.grad(s, params, allow_unused=True)):
                 if g is not None:
                     acc[k] = g if acc[k] is None else acc[k] + g
             total = total + s.detach()
-        return acc, total, bs
+        return acc, total, n
 
     def path_length_from_sums(self, state: TrainState, acc, total: torch.Tensor, bs: int):
         """:meth:`path_length_grads`' output from :meth:`path_length_sums`
-        over ``bs`` rows on each rank, summed over the ranks."""
+        over a global path-length batch of ``bs`` rows, summed over the
+        ranks."""
         cfg = self.cfg
-        bs = bs * mesh.world()
         pl = mesh.total(total) / bs
         mean = state.mean_path_length.detach()
         new_mean = mean + cfg.path_length_decay * (pl - mean)
         scale = (cfg.w_generator_regularization * 2.0 * (1.0 - cfg.path_length_decay)
                  * (pl - new_mean) / bs)
+        # a rank without path-length rows gets None for some of G's
+        # parameters the others reach: the reduction allows it
         grads = [None if g is None else scale * g
-                 for g in mesh.all_reduce_grads(acc, state.g_opt.shard_dims)]
+                 for g in mesh.all_reduce_grads(acc, state.g_opt.shard_dims,
+                                                state.g_opt.params)]
         return grads, (pl - new_mean).square(), pl, new_mean
 
     def _apply_path_length(self, state: TrainState, grads, new_mean: torch.Tensor) -> None:

@@ -314,3 +314,39 @@ def test_tiny_generator_on_the_card_matches_the_cpu(cuda):
     # per stage and tower
     assert (fused_act.launches - counts[0], up_mod.launches - counts[1]) == (16, 12)
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _counts():
+    return (fused_act.launches, fused_act.grad_launches, fused_act.grad_dx_only_launches,
+            up_mod.launches, up_mod.grad_launches)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_rows_launch_nothing(cuda, dtype):
+    """A data rank's empty share of a batch: K1, K2 (bias sum and dx-only),
+    K3 at each tiled up/down form and K4 return empty results of the right
+    shape and dtype (K2 a zero bias sum) and launch no kernel; an input
+    empty for any other reason still raises."""
+    taps = make_blur_kernel(device=cuda)
+    before = _counts()
+    x = torch.randn(0, 8, 8, 16, device=cuda, dtype=dtype, requires_grad=True)
+    bias = torch.randn(16, device=cuda, requires_grad=True)
+    y = fused_act.fused_leaky_relu(x, bias)
+    v = torch.randn(y.shape, device=cuda, dtype=dtype, requires_grad=True)
+    gx, gb = torch.autograd.grad((y * v).sum(), [x, bias], create_graph=True)
+    (gv,) = torch.autograd.grad(gx.float().square().sum() + gb.square().sum(), v)
+    assert y.shape == gx.shape == gv.shape == x.shape and y.dtype == gx.dtype == dtype
+    assert torch.equal(gb, torch.zeros(16, device=cuda))
+    for up, down, pad in ((1, 1, (2, 1)), (2, 1, (2, 1)), (1, 2, (1, 1))):
+        y = up_mod.upfirdn2d(x, taps, up, down, pad)
+        ho = up_mod.out_size(8, up, down, pad[0], pad[1], 4)
+        assert y.shape == (0, ho, ho, 16) and y.dtype == dtype
+        v = torch.randn(y.shape, device=cuda, dtype=dtype, requires_grad=True)
+        (gx,) = torch.autograd.grad((y * v).sum(), x, create_graph=True)
+        (gv,) = torch.autograd.grad(gx.float().square().sum(), v)
+        assert gx.shape == x.shape and gv.shape == y.shape
+    assert _counts() == before
+    with pytest.raises(ValueError, match="empty"):
+        fused_act.fused_leaky_relu(torch.randn(2, 8, 8, 0, device=cuda, dtype=dtype), None)
+    with pytest.raises(ValueError, match="empty"):
+        up_mod.upfirdn2d(torch.randn(2, 0, 8, 16, device=cuda, dtype=dtype), taps, pad=(2, 1))

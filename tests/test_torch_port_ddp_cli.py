@@ -152,16 +152,30 @@ def test_world_size_refuses_a_layout_it_cannot_run(argv, match):
         train_cli.world_size(args, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("batch,world,what", [(24, 4, "wrong-order"), (6, 2, "path-length"),
-                                              (10, 4, "training batch 10")])
+@pytest.mark.parametrize("batch,world,what", [(10, 4, "training batch 10")])
 def test_uneven_shards_are_refused_before_training(batch, world, what, monkeypatch):
+    """Only a training batch that does not divide over the data ranks (the
+    JAX mesh refuses it too)."""
     from multi_stylegan_torch.train.steps import TrainStep
 
     monkeypatch.setattr(mesh, "world", lambda: world)
     with pytest.raises(ValueError, match=what):
         TrainStep(TrainingConfig(batch_size=batch)).check_shards(batch)
-    monkeypatch.setattr(mesh, "world", lambda: 2)
-    TrainStep(TrainingConfig(batch_size=24)).check_shards(24)  # 24, 12, 6
+
+
+@pytest.mark.parametrize("batch,world", [(24, 4), (6, 2), (24, 8), (12, 4)],
+                         ids=["wrong-order-6-over-4", "path-length-3-over-2",
+                              "both-over-8", "wrong-order-3-over-4"])
+def test_uneven_sub_batches_are_accepted(batch, world, monkeypatch):
+    """The wrong-order and path-length rows may fall unevenly (at batch 24:
+    6 and 12 rows over 4 or 8 data ranks); the CLI accepts the layout."""
+    from multi_stylegan_torch.train.steps import TrainStep
+
+    monkeypatch.setattr(mesh, "world", lambda: world)
+    TrainStep(TrainingConfig(batch_size=batch)).check_shards(batch)
+    args = train_cli.build_parser().parse_args(
+        ["--device", "cpu", "--batch_size", str(batch), "--devices", str(world)])
+    assert train_cli.world_size(args, torch.device("cpu")) == world
 
 
 def test_a_rank_other_than_zero_writes_nothing(tmp_path, monkeypatch):
