@@ -69,16 +69,17 @@ beside it.  Phases, each raising on failure:
               parameters and 4 times the unchunked update's launches.
 7. train_run - the training CLI's whole run at the flagship config: a TLFM
               tree of 16-bit TIFFs written here (48 sequences), trap weights,
-              2 epochs (4 steps; trap weights and wrong order in epoch 1,
-              wrong order's start moved from 0.75 to 0.5 of the run), the sample
-              grids and a checkpoint every epoch, FID / FVD / IS once at the
-              end (48 samples, random-weight nets read from files through
+              1 epoch (2 steps; trap weights and wrong order from its start,
+              moved from 0.25 and 0.75 of the run), the sample grids and a
+              checkpoint at its end, FID / FVD / IS once at the end (48
+              samples, random-weight nets read from files through
               ``MSG_TPU_INCEPTION_PT`` / ``MSG_TPU_I3D_PT``), a
-              torch.profiler trace of steps 2-4 (the run's last); then a
-              resume for one more epoch (steps 5-6) from the checkpoint.  Fails on a non-finite
-              loss or score, a failed save, a missing PNG / metric file, a
-              restored state not bitwise the saved one, a batch-15 grid site
-              on upfirdn2d's general form (C = 3 aside), or two grid samples
+              torch.profiler trace of step 2 (the run's last).  The CLI's
+              resume is phase 11's (every rank's restored state the
+              checkpoint's bits); a schedule's switch inside a run only the
+              CPU tests hold.  Fails on a non-finite loss or score, a failed
+              save, a missing PNG / metric file, a batch-15 grid site on
+              upfirdn2d's general form (C = 3 aside), or two grid samples
               off the CPU's by more than ``SAMPLE_TOL``.  Each host Frechet
               distance of the validation is also taken on the card
               (``eval/frechet.py::frechet_distance_device``, Newton-Schulz):
@@ -87,7 +88,7 @@ beside it.  Phases, each raising on failure:
 8. reference - phase 4b's checkpoint through ``cli.export`` into the
               reference's 6-key ``.pt`` and back through ``cli.convert``,
               bitwise the source for all the format carries; the training
-              CLI from the ``.pt`` (its Adam counts go on) and the sampling
+              CLI from the ``.pt`` (batch 16; its Adam counts go on) and the sampling
               CLI on the models directory it writes.
 9. interpolate - ``cli.interpolate`` from that ``.pt``: 96 frames at batch
               32, the GIF's frame count and size, finite frames, the
@@ -95,7 +96,7 @@ beside it.  Phases, each raising on failure:
               batch-32 site, and two rows of the CLI's own first batch
               against the CPU's images of the latents the CLI fed them.
 10. ddp     - two ranks (spawned, gloo: they share the one card) run phase 4's
-              f32 iteration at global batch 24, 12 rows each, from its
+              f32 iteration at global batch 8, 4 rows each, from its
               seed-made state, draws and batch, the path length through the
               Trainer's ladder; held against the same iteration in one
               process (run first and freed): every update's summed gradient
@@ -124,9 +125,18 @@ beside it.  Phases, each raising on failure:
               first for 1 epoch on 2 ranks; one writer, the resume bitwise
               the uninterrupted run, every kernel launched on every rank.
 12. teacher - ``tools/stability_run.py``: the teacher fixture, flagship
-              config, bf16, batch 16, 17 steps through ``Trainer.train``
+              config, bf16, batch 8 (cut from 16 for the soak phase's time), 17
+              steps through ``Trainer.train``
               (the lazy R1 and path length at step 16), a checkpoint at
               step 8 restored into other weights; every metric finite.
+13. soak    - ``tools/soak_b24.py`` at the flagship config, bf16, batch 24,
+              the teacher fixture, 2 epochs of 8 steps: phase A (8 steps, a
+              checkpoint at epoch 1, FID / FVD / IS at 48 samples), then
+              phase B in this process restored at step 8 under
+              ``resume_training`` to step 16 (R1 and path length at step
+              16), its validation pass left to the tool's long run; ``ok``,
+              the steps, phase A's FID / FVD / IS run and none failed, every
+              kernel (and the dx-only K2) launched in phase B.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
 of upfirdn2d the launch took; K2 has a line per form), one ``edge`` line
@@ -137,9 +147,10 @@ from 4b on, a ``seconds`` line, the card's name and power limit,
 one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
 In the kernels line ``launches`` sums the main-path runs (sampling CLI,
 training CLI, the f32 and bf16 iterations, the sequential + fft main step,
-the path-length ladder's update, the training run with its resume, the
+the path-length ladder's update, the training run, the
 training and sampling CLIs of phase 8, the interpolation CLI, every rank of
-phases 10, 10b and 10c, every rank of phase 11's two runs, the teacher run), each counted
+phases 10, 10b and 10c, every rank of phase 11's two runs, the teacher run, both
+soak phases), each counted
 from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
 per f32 regularised training iteration at batch 24: each training call
 site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
@@ -1390,7 +1401,7 @@ def phase_train_parity(seed: int) -> dict:
 # --------------------------------------------------------------- train run
 
 
-TRAIN_RUN_EPOCHS = 2  # PR 7: from 3, for the slice-7 phases' time
+TRAIN_RUN_EPOCHS = 1  # cut from 3 to 2, then to 1, for the later phases' time
 TRAIN_RUN_SAMPLES = 48  # FID / FVD / IS samples here; the protocol takes 5000
 PROTOCOL_SAMPLES = 5000
 GRID_BATCH = 15  # the fixed validation latents of the sample grids
@@ -1482,36 +1493,11 @@ def random_eval_net(module, seed: int):
     return module
 
 
-def host_snapshot(trainer) -> dict:
-    """Every tensor and rng state a resumed run depends on, copied to the host."""
-    from multi_stylegan_torch.data.pipeline import loader_state
-    from multi_stylegan_torch.io.checkpoint import train_state_dict
-
-    flat = {}
-
-    def visit(prefix, value):
-        if isinstance(value, dict):
-            for k, v in value.items():
-                visit(f"{prefix}.{k}", v)
-        elif isinstance(value, (list, tuple)):
-            for i, v in enumerate(value):
-                visit(f"{prefix}.{i}", v)
-        elif hasattr(value, "detach"):
-            flat[prefix] = value.detach().cpu().clone()
-        else:
-            flat[prefix] = value
-
-    visit("state", train_state_dict(trainer.state))
-    visit("loader", loader_state(trainer.loader))
-    flat["draws"] = trainer.draws.generator.get_state().clone()
-    return flat
-
-
 def phase_train_run(seed: int, iteration_ops: list):
     """The training CLI's whole run at the flagship config on a TLFM TIFF
     tree: trap weights, logger, sample grids, checkpoints, FID / FVD / IS
     with random-weight nets loaded from files, a torch.profiler trace of
-    steps 2-5, then a resume.  ``iteration_ops`` (the profiled regularised
+    the run's last step.  ``iteration_ops`` (the profiled regularised
     iteration's top device ops) goes into the printed line beside the
     run's."""
     import shutil
@@ -1559,11 +1545,11 @@ def phase_train_run(seed: int, iteration_ops: list):
             "--seed", str(seed), "--device", DEVICE, "--experiment_path", exp]
         # one validation, at the last epoch: each FID pass spends ~25-60 s in
         # scipy's sqrtm of two 2048 x 2048 products on the host, and four of
-        # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W); the
-        # last epoch runs the wrong-order schedule (its default start, 0.75
-        # of the epochs, falls after epoch 1 of 2)
+        # them took 290 s of a 906 s run (NVIDIA H100 80GB HBM3, 700 W); trap
+        # weights and the wrong-order schedule from the run's start (their
+        # defaults, 0.25 and 0.75 of the epochs, fall after its one epoch)
         overrides = dict(checkpoint_every_n_epochs=1, validate_every_n_epochs=TRAIN_RUN_EPOCHS,
-                         wrong_order_start=0.5)
+                         wrong_order_start=0.0, trap_weight_start=0.0)
         orders, orig_main_step = [], TrainStep.main_step
 
         def main_step(self, state, real, flags, draws):
@@ -1643,43 +1629,13 @@ def phase_train_run(seed: int, iteration_ops: list):
             raise AssertionError(f"grid sample GPU vs CPU: max abs err {grid_err}, peak {grid_peak}")
 
         if trainer.trace is None or trainer.trace.path is None:
-            raise AssertionError("no profiler trace of steps 2-5")
+            raise AssertionError("no profiler trace of the run's last step")
         top_ops = trainer.trace.top_device_ops(15)
         frechet = frechet_rows(fd_calls)
         print("frechet", json.dumps(frechet), flush=True)
-        saved = host_snapshot(trainer)
         ckpt_mb = os.path.getsize(trainer.ckpt.path(steps)) / 2**20
         history = run["history"]
         del run, trainer, cpu_g
-        empty_cache()
-
-        # resume: a fresh CLI call on the same experiment, one more epoch
-        restored, restore_s = {}, []
-        orig_restore = Trainer.restore_latest
-
-        def restore(self, directory=None):
-            t0 = time.perf_counter()
-            ok = orig_restore(self, directory)
-            sync()
-            restore_s.append(time.perf_counter() - t0)
-            restored.update(host_snapshot(self))
-            return ok
-        Trainer.restore_latest = restore
-        try:
-            zero_counts()
-            resumed = train.main(common + ["--epochs", "1", "--no_validation_metrics",
-                                           "--load_checkpoint", os.path.join(exp, "models")],
-                                 config_overrides=overrides)
-            resume_counts = read_counts()
-        finally:
-            Trainer.restore_latest = orig_restore
-        differ = [k for k in saved if not (
-            torch.equal(saved[k], restored[k]) if hasattr(saved[k], "dtype") else saved[k] == restored[k])]
-        if restored.keys() != saved.keys() or differ:
-            raise AssertionError(f"restored state differs from the saved one: {differ[:8]}")
-        if resumed["state"].step != steps + steps_per_epoch or not resumed["finite"]:
-            raise AssertionError(f"resume went to step {resumed['state'].step}")
-        del resumed
         empty_cache()
     finally:
         for k, v in saved_env.items():
@@ -1693,25 +1649,25 @@ def phase_train_run(seed: int, iteration_ops: list):
     metric_s = {m: secs[f"{m}.__call__"] for m in ("FID", "FVD", "IS")}
     row = {
         "tree": tree_row, "sequences": len(dataset), "steps": steps,
-        "resumed_to": steps + steps_per_epoch, "wrong_order_steps": sum(orders),
+        "wrong_order_steps": sum(orders),
         "loader_ms_per_batch": loader_ms,
         "data_wait_s": [m["data_wait_seconds"] for m in history],
         "step_s": [m["seconds"] for m in history],
         "grid_save_s": secs["Trainer._save_sample_grids"],
-        "checkpoint_save_s": secs["Trainer.save_checkpoint"], "checkpoint_restore_s": restore_s,
+        "checkpoint_save_s": secs["Trainer.save_checkpoint"],
         "checkpoint_mb": ckpt_mb,
         "metric_s": metric_s, "metric_samples": TRAIN_RUN_SAMPLES,
         "metric_s_scaled_to_5000": {m: [s * PROTOCOL_SAMPLES / TRAIN_RUN_SAMPLES for s in v]
                                     for m, v in metric_s.items()},
         "scores_last": {k: v[-1] for k, v in scores.items()},
-        "peak_memory_gib": peak, "launches": counts, "resume_launches": resume_counts,
+        "peak_memory_gib": peak, "launches": counts,
         "grid_sites": {str(k): v for k, v in grids.seen.items()},
         "grid_sample_max_abs_err": grid_err, "grid_sample_peak": grid_peak,
-        "top_device_ops_steps_2_5": top_ops, "frechet": frechet,
+        "top_device_ops_last_step": top_ops, "frechet": frechet,
         "top_device_ops_regularised_iteration": iteration_ops,
     }
     print("train_run", json.dumps(row), flush=True)
-    return {k: counts[k] + resume_counts[k] for k in counts}, row
+    return counts, row
 
 
 # ----------------------------------------------------------------- slice 5
@@ -1929,11 +1885,12 @@ def phase_reference(seed: int, trained_dir: str, work: str):
     if back.keys() != source.keys() or differ or source["g_opt.count"] < 1:
         raise AssertionError(f"export -> convert is not the source state: {differ[:8]}")
 
-    # the training CLI from the .pt: one epoch of the synthetic fixture
+    # the training CLI from the .pt: one epoch of the synthetic fixture, 4
+    # steps at batch 16 (cut from 24 for the soak phase's time)
     exp = os.path.join(work, "from_pt")
     zero_counts()
     run = train.main(CONFIG_ARGS + [
-        "--synthetic", "--epochs", "1", "--batch_size", str(TRAIN_BATCH), "--seed", str(seed),
+        "--synthetic", "--epochs", "1", "--batch_size", "16", "--seed", str(seed),
         "--device", DEVICE, "--no_validation_metrics", "--load_checkpoint", pt,
         "--experiment_path", exp], config_overrides=dict(checkpoint_every_n_epochs=1))
     train_counts = read_counts()
@@ -2303,11 +2260,14 @@ def rank_launches(one_process: dict, rows: dict) -> dict:
     return want
 
 
+DDP_BATCH = 8  # cut from 24 for the soak phase's time (a launch count is batch-free)
+
+
 def phase_ddp(seed: int, iteration_counts: dict) -> tuple:
-    """Two data ranks at global batch 24, 12 rows each
+    """Two data ranks at global batch ``DDP_BATCH``, half of it each
     (:func:`spawned_iteration`); their launches also phase
     train_iteration's."""
-    return spawned_iteration("ddp", seed, DDP_WORLD, 1, TRAIN_BATCH, iteration_counts)
+    return spawned_iteration("ddp", seed, DDP_WORLD, 1, DDP_BATCH, iteration_counts)
 
 
 TP_BATCH = 4  # the global batch of phase tp: every channel gather goes through host memory
@@ -2453,7 +2413,7 @@ def phase_ddp_cli(seed: int) -> tuple:
 
 
 def phase_teacher(seed: int, work: str) -> tuple:
-    """``tools/stability_run.py`` at the flagship config, bf16, batch 16,
+    """``tools/stability_run.py`` at the flagship config, bf16, batch 8,
     on the teacher fixture, for 17 steps through ``Trainer.train`` (the lazy
     R1 and path length inside the loop at step 16), checkpointed at step 8
     and restored into other weights: every metric finite, the steps'
@@ -2462,7 +2422,7 @@ def phase_teacher(seed: int, work: str) -> tuple:
 
     zero_counts()
     report = stability_run.main(CONFIG_ARGS + [
-        "--steps", "17", "--batch", "16", "--dtype", "bfloat16", "--fixture", "teacher",
+        "--steps", "17", "--batch", "8", "--dtype", "bfloat16", "--fixture", "teacher",
         "--device", DEVICE, "--seed", str(seed), "--out", os.path.join(work, "teacher.json")])
     counts = read_counts()
     row = {k: report[k] for k in ("ok", "final_step", "regularised_steps", "step_seconds",
@@ -2475,6 +2435,73 @@ def phase_teacher(seed: int, work: str) -> tuple:
         raise AssertionError(f"teacher run: a kernel was never launched: {counts}")
     empty_cache()
     return counts, row
+
+
+SOAK_ARGS = ["--epochs", "2", "--steps_per_epoch", "8", "--batch", str(TRAIN_BATCH),
+             "--dtype", "bfloat16", "--val_samples", "48", "--val_batch", "8"]
+
+
+def phase_soak(work: str) -> tuple:
+    """``tools/soak_b24.py`` at the flagship config, bf16, batch 24, on the
+    teacher fixture, its two phases in this process (the counts zeroed
+    before each): phase A 8 steps, a checkpoint at epoch 1 and a validation
+    pass (48 samples); phase B restores step 8 under ``resume_training``
+    from the shared checkpoint directory and runs 8 steps (R1 and path
+    length at step 16).  Phase B's own validation pass, the same code on
+    other weights, is left to the tool's long run: a FID pass spends 25-57 s
+    in scipy's host ``sqrtm`` here.  Fails unless the record is ``ok``, the
+    restored step 8 and the final 16, phase A ran FID, FVD and IS and none
+    failed, R1 and path length ran at step 16 and phase B launched every
+    kernel, the dx-only K2 among them."""
+    import numpy as np
+
+    from multi_stylegan_torch.ops import fused_act
+    from multi_stylegan_torch.tools import soak_b24
+
+    workdir = os.path.join(work, "soak")
+    argv = CONFIG_ARGS + SOAK_ARGS + ["--device", DEVICE, "--workdir", workdir,
+                                      "--out", os.path.join(work, "soak.json")]
+    counts, dx_only, seconds = {}, {}, {}
+    config = soak_b24.phase_config
+    for phase in ("a", "b"):
+        if phase == "b":  # no epoch of phase B's is a validation epoch
+            soak_b24.phase_config = lambda args, resume, epochs: dataclasses.replace(
+                config(args, resume, epochs), validate_every_n_epochs=epochs + 1)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            report = soak_b24.main(argv + ["--phase", phase])
+        finally:
+            soak_b24.phase_config = config
+        sync()
+        seconds[phase] = time.perf_counter() - t0
+        counts[phase], dx_only[phase] = read_counts(), fused_act.grad_dx_only_launches
+        empty_cache()
+    metrics = os.path.join(workdir, "phase_b", "metrics")
+    regs = {name: np.load(os.path.join(metrics, f"{name}.npy")).tolist()
+            for name in ("loss_discriminator_regularization", "path_length")}
+    row = {"ok": report["ok"], "restored_step": report.get("restored_step"),
+           "final_step": report.get("final_step"), "seconds": seconds,
+           "launches": counts, "dx_only_launches": dx_only, "phase_b_regularisers": regs,
+           "events": [e for e in report["events"] if e["event"] != "warning"]}
+    for tag in ("phase_a", "phase_b"):
+        row[tag] = {k: report[tag][k] for k in ("steps", "wall_s", "seqs_per_sec",
+                                                "peak_memory_bytes")}
+        row[tag]["peak_gib"] = (report[tag]["peak_memory_bytes"] or 0) / 2 ** 30
+    row["validation_wall_s"] = [(e["event"], e["wall_s"]) for e in report["events"]
+                                if e["event"].startswith("validation") and "wall_s" in e]
+    print("soak", json.dumps(row), flush=True)
+    failed = [e for e in report["events"] if "FAILED" in e["event"]]
+    validated = [e["event"] for e in report["events"] if e["event"].startswith("validation")]
+    reg_steps = [i + 9 for i, (r1, pl) in enumerate(zip(*regs.values())) if r1 > 0 and pl > 0]
+    if (not report["ok"] or report["restored_step"] != 8 or report["final_step"] != 16
+            or failed or reg_steps != [16]
+            or validated != ["validation FID", "validation FVD", "validation IS"]):
+        raise AssertionError(f"soak: {row}")
+    if not all(counts["b"].values()) or not dx_only["b"]:
+        raise AssertionError(f"soak: phase B never launched a kernel: {counts['b']}, "
+                             f"dx-only K2 {dx_only['b']}")
+    return {k: counts["a"][k] + counts["b"][k] for k in KERNELS}, row
 
 
 def frechet_rows(calls: list) -> list:
@@ -2630,6 +2657,7 @@ def main() -> int:
         uneven_counts, uneven_row = phase("ddp_uneven", phase_ddp_uneven, args.seed)
         ddp_cli_counts, ddp_cli_row = phase("ddp_cli", phase_ddp_cli, args.seed)
         teacher_counts, teacher_row = phase("teacher", phase_teacher, args.seed, work)
+        soak_counts, soak_row = phase("soak", phase_soak, work)
 
     sample_counts = {"K1": counts["fused_leaky_relu"], "K2": 0,
                      "K3": counts["upfirdn2d"], "K4": 0}
@@ -2638,7 +2666,7 @@ def main() -> int:
                "sequential_fft": seq_counts, "pl_ladder": pl_counts, "train_run": run_counts,
                "reference": ref_counts, "interpolate": interp_counts, "ddp": ddp_counts,
                "tp": tp_counts, "ddp_uneven": uneven_counts, "ddp_cli": ddp_cli_counts,
-               "teacher": teacher_counts}
+               "teacher": teacher_counts, "soak": soak_counts}
     launches = {k: sum(c[k] for c in by_path.values()) for k in KERNELS}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path was never launched: {launches}")
@@ -2659,7 +2687,7 @@ def main() -> int:
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,
              "train_run": run_row, "reference": ref_row, "interpolate": interp_row,
              "ddp": ddp_row, "tp": tp_row, "ddp_uneven": uneven_row, "ddp_cli": ddp_cli_row,
-             "teacher": teacher_row,
+             "teacher": teacher_row, "soak": soak_row,
              "launches_by_path": by_path, "seconds": seconds, **line}, indent=1))
     print("seconds", json.dumps({k: round(v, 1) for k, v in seconds.items()}))
     print(smi)

@@ -4,8 +4,10 @@ dataset of [C, T, H, W] numpy sequences, in the JAX package's batch order
 
 Each epoch :class:`EpochSampler` shuffles ``arange(len(dataset))`` with one
 ``np.random.default_rng(seed)`` kept across epochs, exactly as the JAX
-``BatchLoader`` draws its permutation, and the loader batches it with
-``drop_last=True``: both loaders visit the same sequences in the same order.
+``BatchLoader`` draws its permutation, and the loader batches it dropping
+the last partial batch: both loaders visit the same sequences in the same
+order.  As the JAX loader, :func:`make_loader` can also keep the dataset's
+order (``shuffle=False``, as validation streams its real samples).
 
 Items are read by ``num_workers`` worker *processes* (started with
 ``spawn`` and kept across epochs): decoding an LZW TIFF in Python holds the
@@ -38,15 +40,16 @@ from multi_stylegan_torch.parallel import mesh
 
 class EpochSampler(Sampler[int]):
     """A fresh permutation of the dataset's indices per epoch, drawn as the
-    JAX ``BatchLoader._epoch_indices`` draws it.  With ``world`` ranks it
-    yields, of each whole global batch of ``batch_size``, the slice of rank
-    ``rank``."""
+    JAX ``BatchLoader._epoch_indices`` draws it (or the dataset's order,
+    without ``shuffle``).  With ``world`` ranks it yields, of each whole
+    global batch of ``batch_size``, the slice of rank ``rank``."""
 
     def __init__(self, n: int, seed: int = 0, batch_size: int = 1, rank: int = 0,
-                 world: int = 1) -> None:
+                 world: int = 1, shuffle: bool = True) -> None:
         self.n = n
         self.rng = np.random.default_rng(seed)
         self.batch_size, self.rank, self.world = batch_size, rank, world
+        self.shuffle = shuffle
 
     def __len__(self) -> int:
         if self.world == 1:
@@ -55,7 +58,8 @@ class EpochSampler(Sampler[int]):
 
     def __iter__(self) -> Iterator[int]:
         idx = np.arange(self.n)
-        self.rng.shuffle(idx)
+        if self.shuffle:
+            self.rng.shuffle(idx)
         if self.world > 1:
             per = self.batch_size // self.world
             idx = idx[:self.n // self.batch_size * self.batch_size].reshape(
@@ -70,10 +74,12 @@ def _seed_worker(seed: int, worker_id: int) -> None:
 
 
 def make_loader(dataset, batch_size: int, seed: int = 0, num_workers: int = 0,
-                device: torch.device = torch.device("cpu")) -> DataLoader:
-    """The shuffled, dropped-last loader of ``dataset`` for training on
-    ``device``; under data parallelism ``batch_size`` is the global batch
-    and the loader yields this rank's rows of it."""
+                device: torch.device = torch.device("cpu"),
+                shuffle: bool = True) -> DataLoader:
+    """The loader of ``dataset`` for ``device``, dropping the last partial
+    batch and shuffled unless asked otherwise (JAX pipeline.py:23-33); under
+    data parallelism ``batch_size`` is the global batch and the loader
+    yields this rank's rows of it."""
     if len(dataset) < batch_size:
         raise ValueError(f"dataset of {len(dataset)} samples cannot fill a batch of {batch_size}")
     world = mesh.world()
@@ -82,7 +88,7 @@ def make_loader(dataset, batch_size: int, seed: int = 0, num_workers: int = 0,
     workers = dict(num_workers=num_workers, multiprocessing_context="spawn",
                    persistent_workers=True, prefetch_factor=2,
                    worker_init_fn=functools.partial(_seed_worker, seed)) if num_workers else {}
-    sampler = EpochSampler(len(dataset), seed, batch_size, mesh.rank(), world)
+    sampler = EpochSampler(len(dataset), seed, batch_size, mesh.rank(), world, shuffle)
     return DataLoader(dataset, batch_size=batch_size // world, sampler=sampler,
                       drop_last=True, pin_memory=torch.device(device).type == "cuda", **workers)
 

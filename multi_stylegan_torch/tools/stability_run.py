@@ -52,7 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _models(args, device, seed: int):
+def models(args, device, seed: int):
+    """(generator, discriminator) of ``args.tiny`` / ``args.dtype`` with the
+    reference init from ``seed``, on ``device`` (full remat: the configs'
+    default)."""
     from multi_stylegan_torch.cli.train import model_configs
     from multi_stylegan_torch.models.discriminator import Discriminator
     from multi_stylegan_torch.models.generator import Generator
@@ -65,7 +68,25 @@ def _models(args, device, seed: int):
     return generator.to(device), discriminator.to(device)
 
 
-def _nonfinite_params(state) -> List[str]:
+def teacher_fixture(gcfg, tiny: bool, n_samples: int, dtype: str, batch: int, device):
+    """The teacher fixture at ``gcfg``'s resolution: the fixture's
+    512-channel generator, or with ``tiny`` the debug config's own (other
+    weights), to keep a debug run small."""
+    from multi_stylegan_torch.data.synthetic import TeacherTLFMDataset
+    from multi_stylegan_torch.models.generator import Generator
+
+    teacher = None
+    if tiny:
+        teacher = Generator(dataclasses.replace(gcfg, remat=False))
+        teacher.reset_parameters(torch.Generator().manual_seed(17))
+        teacher = teacher.to(device)
+    return TeacherTLFMDataset(n_samples=n_samples, resolution=gcfg.resolution,
+                              compute_dtype=dtype, batch=batch, generator=teacher,
+                              device=device)
+
+
+def nonfinite_params(state) -> List[str]:
+    """The parameters of G, its EMA and D holding a non-finite value."""
     bad = []
     for group in ("generator", "g_ema", "discriminator"):
         for name, p in getattr(state, group).named_parameters():
@@ -79,27 +100,20 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     from multi_stylegan_torch.cli.sample import resolve_device
     from multi_stylegan_torch.data.pipeline import make_loader
-    from multi_stylegan_torch.data.synthetic import SyntheticTLFMDataset, TeacherTLFMDataset
+    from multi_stylegan_torch.data.synthetic import SyntheticTLFMDataset
     from multi_stylegan_torch.io.logger import Logger
     from multi_stylegan_torch.models.config import TrainingConfig
-    from multi_stylegan_torch.models.generator import Generator
     from multi_stylegan_torch.train.draws import TorchDraws
     from multi_stylegan_torch.train.loop import Trainer
     from multi_stylegan_torch.utils.precision import pin_f32
 
     device = resolve_device(args.device)
     pin_f32()
-    generator, discriminator = _models(args, device, args.seed)
+    generator, discriminator = models(args, device, args.seed)
     res = generator.config.resolution
     if args.fixture == "teacher":
-        teacher = None  # the fixture's 512-channel generator at the resolution
-        if args.tiny:  # the debug config's own generator, to keep the debug run small
-            teacher = Generator(dataclasses.replace(generator.config, remat=False))
-            teacher.reset_parameters(torch.Generator().manual_seed(17))
-            teacher = teacher.to(device)
-        fixture = TeacherTLFMDataset(n_samples=max(256, args.batch * 8), resolution=res,
-                                     compute_dtype=args.dtype, batch=args.batch,
-                                     generator=teacher, device=device)
+        fixture = teacher_fixture(generator.config, args.tiny, max(256, args.batch * 8),
+                                  args.dtype, args.batch, device)
     else:
         fixture = SyntheticTLFMDataset(n_samples=max(64, args.batch * 4), resolution=res)
     loader = make_loader(fixture, args.batch, seed=args.seed, device=device)
@@ -145,7 +159,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
         # restore into a trainer around other random weights, the first one gone
         ckpt_dir = first.ckpt.root
         del first, generator, discriminator
-        resumed = trainer(*_models(args, device, args.seed + 1), "resumed")
+        resumed = trainer(*models(args, device, args.seed + 1), "resumed")
         if not resumed.restore_latest(ckpt_dir) or resumed.state.step != half:
             raise RuntimeError(f"restore from {ckpt_dir} did not give step {half}")
         report["events"].append(f"restored at step {resumed.state.step}")
@@ -165,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     report["loss_tail"] = report["trace"][-4:]
     ps = [p for *_, p, _ in t_log]
     report["ada_p_range"] = [min(ps), max(ps)] if ps else None
-    report["nonfinite_params"] = _nonfinite_params(state)[:20]
+    report["nonfinite_params"] = nonfinite_params(state)[:20]
     report["ok"] = (not report["nan_steps"] and not report["nonfinite_params"]
                     and state.step == args.steps)
     with open(args.out, "w") as f:

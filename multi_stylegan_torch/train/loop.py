@@ -84,13 +84,16 @@ def top_k_iterations(cfg: TrainingConfig, total_steps: int) -> Tuple[int, int]:
 
 class Trainer:
     """Trains a generator / discriminator pair on the batches of ``loader``
-    (data/pipeline.py), with the draws from ``draws`` (train/draws.py)."""
+    (data/pipeline.py), with the draws from ``draws`` (train/draws.py).
+    Checkpoints go to ``checkpoint_dir``, by default the logger's
+    ``models/``."""
 
     def __init__(self, generator, discriminator, config: TrainingConfig, loader, draws,
                  epochs: int = 100, data_logger: Optional[Logger] = None,
                  validation_metrics: Sequence[Callable] = (),
                  trap_weights_map: Optional[np.ndarray] = None,
-                 profile_dir: Optional[str] = None) -> None:
+                 profile_dir: Optional[str] = None,
+                 checkpoint_dir: Optional[str] = None) -> None:
         self.cfg = config
         self.loader = loader
         self.draws = draws
@@ -112,7 +115,9 @@ class Trainer:
         self.state = create_train_state(generator, discriminator, config)
         mesh.broadcast_state(train_state_dict(self.state))
         self.writer = mesh.writes()
-        self.ckpt = CheckpointManager(self.logger.path_models)
+        # its own directory lets two runs (a run and its resume) share one
+        # (JAX loop.py:250-253)
+        self.ckpt = CheckpointManager(checkpoint_dir or self.logger.path_models)
         # fixed validation latents: 15 pairs, always mixed (model_wrapper.py:99-102)
         gen = torch.Generator(device=self.device).manual_seed(config.seed + 1)
         dim = generator.config.latent_dimensions
@@ -299,7 +304,8 @@ class Trainer:
 
     def restore_latest(self, directory: Optional[str] = None) -> bool:
         """Restore the newest checkpoint of ``directory`` (default this
-        trainer's) into the live state, in place; False if there is none."""
+        trainer's checkpoint directory) into the live state, in place; False
+        if there is none."""
         ckpt = self.ckpt if directory is None else CheckpointManager(directory)
         if ckpt.latest_step() is None:
             return False
