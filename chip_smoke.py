@@ -2300,12 +2300,13 @@ def phase_ddp_uneven(seed: int) -> tuple:
 COUNTS_DIR_ENV = "CHIP_SMOKE_COUNTS_DIR"
 
 
-def counted_rank_main(rank: int, *args):
-    """The training CLI's rank entry (``cli/train.py::_rank_main``), and into
-    the directory ``COUNTS_DIR_ENV`` names this rank's K1-K4 launches,
-    whether each checkpoint it restored came back bit for bit (its training
-    state and the draws' state), and a digest of its final state (phase
-    ddp_cli puts it in the CLI's place)."""
+def counted_spawned_rank(device, args, config_overrides, validation_samples):
+    """A rank the training CLI spawned (``cli/train.py::_spawned_rank``,
+    through ``parallel/mesh.py::spawn``), and into the directory
+    ``COUNTS_DIR_ENV`` names this rank's K1-K4 launches, whether each
+    checkpoint it restored came back bit for bit (its training state and the
+    draws' state), and a digest of its final state (phase ddp_cli puts it in
+    the CLI's place)."""
     import hashlib
 
     import torch
@@ -2326,15 +2327,16 @@ def counted_rank_main(rank: int, *args):
                         and torch.equal(self.draws.generator.get_state(), saved["draws"]))
     Trainer.load_payload = load_payload
     zero_counts()
-    run = train._rank_main(rank, *args)
+    run = train.train(args, device, config_overrides, validation_samples)
     counts = read_counts()
     digest = hashlib.sha256()
     for t in mesh.tensors_of(train_state_dict(run["state"])):
         digest.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
-    with open(os.path.join(os.environ[COUNTS_DIR_ENV], f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(os.environ[COUNTS_DIR_ENV], f"rank{mesh.process_index()}.json"),
+              "w") as f:
         json.dump({"launches": counts, "restored_bitwise": restored,
                    "state_sha256": digest.hexdigest()}, f)
-    return run
+    return train.summary(run)
 
 
 def run_to_file(log: str, fn, *a, **kw):
@@ -2370,7 +2372,7 @@ def phase_ddp_cli(seed: int) -> tuple:
             "--batch_size", "16", "--seed", str(seed), "--resume_training",
             "--no_validation_metrics"]
     runs, ranks = {}, {}
-    orig, train._rank_main = train._rank_main, counted_rank_main
+    orig, train._spawned_rank = train._spawned_rank, counted_spawned_rank
     try:
         for name, argv, epochs in (("first", [], 2), ("resumed", [
                 "--load_checkpoint", os.path.join(tmp, "first", "models")], 1)):
@@ -2389,7 +2391,7 @@ def phase_ddp_cli(seed: int) -> tuple:
             log = f.read()
         models = sorted(os.listdir(os.path.join(tmp, "first", "models")))
     finally:
-        train._rank_main = orig
+        train._spawned_rank = orig
         os.environ.pop(COUNTS_DIR_ENV, None)
         shutil.rmtree(tmp, ignore_errors=True)
     first, resumed = runs["first"], runs["resumed"]
@@ -2443,7 +2445,8 @@ SOAK_ARGS = ["--epochs", "2", "--steps_per_epoch", "8", "--batch", str(TRAIN_BAT
 
 def phase_soak(work: str) -> tuple:
     """``tools/soak_b24.py`` at the flagship config, bf16, batch 24, on the
-    teacher fixture, its two phases in this process (the counts zeroed
+    teacher fixture, its two phases in this process on one data rank
+    (``--devices 1``, whatever cards the machine shows; the counts zeroed
     before each): phase A 8 steps, a checkpoint at epoch 1 and a validation
     pass (48 samples); phase B restores step 8 under ``resume_training``
     from the shared checkpoint directory and runs 8 steps (R1 and path
@@ -2459,8 +2462,8 @@ def phase_soak(work: str) -> tuple:
     from multi_stylegan_torch.tools import soak_b24
 
     workdir = os.path.join(work, "soak")
-    argv = CONFIG_ARGS + SOAK_ARGS + ["--device", DEVICE, "--workdir", workdir,
-                                      "--out", os.path.join(work, "soak.json")]
+    argv = CONFIG_ARGS + SOAK_ARGS + ["--device", DEVICE, "--devices", "1", "--workdir",
+                                      workdir, "--out", os.path.join(work, "soak.json")]
     counts, dx_only, seconds = {}, {}, {}
     config = soak_b24.phase_config
     for phase in ("a", "b"):

@@ -44,10 +44,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import math
 import os
-import tempfile
 import time
 from typing import Any, Dict, List, Optional
 
@@ -225,12 +223,14 @@ def build(args, device: torch.device):
 
 def validation_metrics(args, latent_dimensions: int, device: torch.device,
                        data_samples: Optional[int] = None) -> tuple:
-    """FID, FVD and IS on ``device``, or none when the weights are missing."""
+    """FID, FVD and IS on ``device`` at the metrics' default batch, or none
+    when the weights are missing."""
     if args.no_validation_metrics:
         return ()
     from multi_stylegan_torch.eval.metrics import FID, FVD, IS, WeightsUnavailable
 
-    kw = dict(batch_size=args.batch_size, latent_dimensions=latent_dimensions, device=device)
+    # the metrics' own batch, as the JAX CLI builds them (not --batch_size)
+    kw = dict(latent_dimensions=latent_dimensions, device=device)
     if data_samples is not None:
         kw["data_samples"] = data_samples
     try:
@@ -273,44 +273,25 @@ def main(argv: Optional[List[str]] = None, config_overrides: Optional[Dict[str, 
     world = world_size(args, device)
     extra = (config_overrides, validation_samples)
     if args.coordinator_address is not None:
-        return _rank_main(args.process_id, args, world,
-                          f"tcp://{args.coordinator_address}", False, *extra)
+        return mesh.run_rank(lambda dev: train(args, dev, *extra), (), args.process_id, world,
+                             f"tcp://{args.coordinator_address}", torch.device(args.device),
+                             n_model=args.model_parallel)
     if world == 1:
         return train(args, device, *extra)
-    cards = torch.cuda.device_count() if device.type == "cuda" else 0
-    # ranks on the CPU of this host share its cores
-    threads = None if cards else max(1, torch.get_num_threads() // world)
-    with tempfile.TemporaryDirectory(prefix="msg_ranks_") as tmp:
-        summary = os.path.join(tmp, "rank0.json")
-        torch.multiprocessing.start_processes(
-            _rank_main, args=(args, world, f"file://{os.path.join(tmp, 'rendezvous')}",
-                              world > cards, *extra, summary, threads),
-            nprocs=world, join=True, start_method="spawn")
-        with open(summary) as f:
-            return json.load(f)
+    return mesh.spawn(_spawned_rank, (args, *extra), world, device, n_model=args.model_parallel)
 
 
-def _rank_main(rank: int, args, world: int, init_method: str, shares_card: bool,
-               config_overrides: Optional[Dict[str, Any]], validation_samples: Optional[int],
-               summary: Optional[str] = None, threads: Optional[int] = None
-               ) -> Dict[str, object]:
-    """One rank of ``world``: join the process group, train, leave it; rank
-    0 writes its summary to ``summary`` when given."""
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
-    if threads:
-        torch.set_num_threads(threads)
-    mesh.init(world, rank, init_method, device, shares_card=shares_card,
-              n_model=args.model_parallel)
-    try:
-        run = train(args, device, config_overrides, validation_samples)
-    finally:
-        mesh.shutdown()
-    if summary and rank == 0:
-        with open(summary, "w") as f:
-            json.dump({k: run[k] for k in ("steps", "seconds", "finite", "history")}, f)
-    return run
+def summary(run: Dict[str, object]) -> Dict[str, object]:
+    """What ``main`` returns of a run whose ranks it spawned (rank 0's): its
+    steps, seconds, finiteness and history."""
+    return {k: run[k] for k in ("steps", "seconds", "finite", "history")}
+
+
+def _spawned_rank(device: torch.device, args, config_overrides: Optional[Dict[str, Any]],
+                  validation_samples: Optional[int]) -> Dict[str, object]:
+    """One rank ``main`` spawned (``parallel/mesh.py::spawn``): train, then
+    the :func:`summary`."""
+    return summary(train(args, device, config_overrides, validation_samples))
 
 
 def train(args, device: torch.device, config_overrides: Optional[Dict[str, Any]] = None,

@@ -41,6 +41,7 @@ import torch
 from multi_stylegan_torch.eval.frechet import frechet_distance
 from multi_stylegan_torch.eval.i3d import InceptionI3D, i3d_from_state_dict
 from multi_stylegan_torch.eval.inception_v3 import InceptionV3, inception_from_state_dict
+from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.utils.image import normalize_m1_1_batch, resize_bilinear_antialias
 
 
@@ -59,6 +60,24 @@ def _load_net(path: Optional[str], env: str, from_state_dict, random_net,
             torch.manual_seed(0)
             return random_net().eval()
     raise WeightsUnavailable(f"{what}: pass its path or set {env}")
+
+
+def frechet_scores(real: Dict[int, np.ndarray], fake: Dict[int, np.ndarray],
+                   domains) -> tuple:
+    """Each domain's Frechet distance of ``real`` and ``fake``.  Under
+    several processes every rank holds the same activations (the global
+    batches), so global rank 0 alone takes the host ``sqrtm`` and broadcasts
+    the scores, or the error it raised, which every rank raises."""
+    result = None
+    if mesh.process_index() == 0:
+        try:
+            result = tuple(frechet_distance(real[d], fake[d]) for d in domains)
+        except Exception as e:  # every rank raises it below
+            result = e
+    result = mesh.broadcast_object(result)
+    if isinstance(result, Exception):
+        raise result
+    return result
 
 
 class _MetricBase:
@@ -148,7 +167,7 @@ class FID(_MetricBase):
             self.activations_real = self._collect(iter(dataset), self._generator(self.seed))
         gen = self._generator(self.seed + 1)
         fake = self._collect(self._fake_batches(generator_apply, gen), gen)
-        scores = tuple(frechet_distance(self.activations_real[d], fake[d]) for d in self._domains)
+        scores = frechet_scores(self.activations_real, fake, self._domains)
         return scores[0] if len(scores) == 1 else scores
 
 
@@ -222,5 +241,5 @@ class FVD(_MetricBase):
         if self.activations_real is None:
             self.activations_real = self._collect(iter(dataset))
         fake = self._collect(self._fake_batches(generator_apply, self._generator(self.seed + 3)))
-        scores = tuple(frechet_distance(self.activations_real[d], fake[d]) for d in self._domains)
+        scores = frechet_scores(self.activations_real, fake, self._domains)
         return scores[0] if len(scores) == 1 else scores

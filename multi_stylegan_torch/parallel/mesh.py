@@ -41,14 +41,20 @@ that each own a card; ranks sharing a card, or on the CPU, use gloo (NCCL
 refuses two ranks on one device).  Without a process group (world size 1)
 every function here is the plain single-process expression and no
 collective runs.
+
+:func:`spawn` starts the ranks of one host (the training CLI's and the soak
+tool's), :func:`run_rank` is one rank's life: its card, the group, its body.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import math
+import os
 import pickle
-from typing import Any, List, Optional, Sequence
+import tempfile
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -132,6 +138,11 @@ def init(world_size: int, rank_: int, init_method: str, device: torch.device,
     return backend
 
 
+def backend() -> Optional[str]:
+    """The process group's backend ('nccl' or 'gloo'); None without one."""
+    return dist.get_backend() if dist.is_available() and dist.is_initialized() else None
+
+
 def shutdown() -> None:
     global _N_MODEL, _DATA_GROUP, _MODEL_GROUP
     if dist.is_available() and dist.is_initialized():
@@ -143,6 +154,77 @@ def barrier() -> None:
     """Wait for every rank (the JAX ``process_barrier``); no-op alone."""
     if process_count() > 1:
         dist.barrier()
+
+
+# ---------------------------------------------------------------- ranks
+
+
+def run_rank(body: Callable, body_args: tuple, rank_: int, world_size: int,
+             init_method: Optional[str], device: torch.device, shares_card: bool = False,
+             n_model: int = 1, threads: Optional[int] = None) -> Any:
+    """``body(device, *body_args)`` as global rank ``rank_`` of ``world_size``:
+    a CUDA ``device`` becomes this rank's card, ``cuda:(rank_ mod cards)``,
+    the rank joins the group through ``init_method`` (:func:`init`) and
+    leaves it when ``body`` returns or raises.  With no ``init_method`` the
+    lone rank runs ``body`` on ``device`` as given, without a group.
+    ``threads`` sets torch's intra-op threads first."""
+    if threads:
+        torch.set_num_threads(threads)
+    if init_method is None:
+        return body(device, *body_args)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank_ % torch.cuda.device_count())
+    init(world_size, rank_, init_method, device, shares_card=shares_card, n_model=n_model)
+    try:
+        return body(device, *body_args)
+    finally:
+        shutdown()
+
+
+def spawn(body: Callable, body_args: tuple, world_size: int, device: torch.device,
+          n_model: int = 1) -> Any:
+    """Run :func:`run_rank` with ``body`` in ``world_size`` processes spawned
+    on this host (``torch.multiprocessing``, a ``file://`` rendezvous in a
+    temporary directory) and return rank 0's result, a JSON value.  Rank r
+    runs on ``cuda:(r mod cards)`` over NCCL when every rank has a card of
+    its own and over gloo when ranks share one; on the CPU over gloo, the
+    ranks sharing this process's threads.  Several ranks share the host's
+    cores for numpy's BLAS too (the host ``sqrtm`` of the validation
+    metrics): each gets its share unless ``OPENBLAS_NUM_THREADS`` or
+    ``MKL_NUM_THREADS`` is set already.  One rank runs in a process of its
+    own without a group.  ``body`` is pickled by name (a module-level
+    function); this process touches no card.  A rank that fails stops the
+    others and raises here."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    # ranks on the CPU of this host share its cores
+    threads = None if cards or world_size == 1 else max(1, torch.get_num_threads() // world_size)
+    blas = {} if world_size == 1 else {
+        k: str(max(1, (os.cpu_count() or 1) // world_size))
+        for k in ("OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS") if k not in os.environ}
+    os.environ.update(blas)  # read by each spawned rank as numpy loads
+    try:
+        with tempfile.TemporaryDirectory(prefix="msg_ranks_") as tmp:
+            out = os.path.join(tmp, "rank0.json")
+            init_method = f"file://{os.path.join(tmp, 'rendezvous')}" if world_size > 1 else None
+            torch.multiprocessing.start_processes(
+                _rank_process, args=(body, body_args, world_size, init_method, device,
+                                     world_size > cards, n_model, threads, out),
+                nprocs=world_size, join=True, start_method="spawn")
+            with open(out) as f:
+                return json.load(f)
+    finally:
+        for k in blas:
+            del os.environ[k]
+
+
+def _rank_process(rank_: int, body: Callable, body_args: tuple, world_size: int,
+                  init_method: Optional[str], device: torch.device, shares_card: bool,
+                  n_model: int, threads: Optional[int], out: str) -> None:
+    result = run_rank(body, body_args, rank_, world_size, init_method, device, shares_card,
+                      n_model, threads)
+    if rank_ == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
 
 
 # ----------------------------------------------------------------- rows

@@ -16,24 +16,40 @@ phases:
            model_wrapper.py:121-123), for the second half, ending in another
            validation pass.  The restored step must be the latest saved one.
 
-``--phase both`` (the default) runs the two phases as separate spawned
-processes, one after the other: a new process is the reference's resume
-workflow, and it frees all of phase A's device memory before phase B
-builds its state.  The tool runs in one process on one device.
+Both phases train on ``--devices`` data ranks, one process each (default
+one; the JAX tool's ``make_mesh()`` puts every device of the host on the
+data axis, here ``--devices 4`` on four cards).  Each rank trains on its
+rows of every global batch of ``--batch``, which must divide over them, as
+in the training CLI, whose launcher (parallel/mesh.py::spawn) starts them:
+NCCL when each rank owns a card, gloo when ranks share one or run on the
+CPU.  Global rank 0 draws the teacher fixture and broadcasts it (the record
+keeps its digest), makes the logger and writes the grids, checkpoints and
+the record; every rank takes part in the checkpoint's gather, runs the
+validation metrics on the global batches (rank 0 alone takes the Frechet
+distances and broadcasts them), restores phase A's checkpoint in phase B
+and sweeps its own parameters.  ``--phase both`` (the default) starts each
+phase's ranks anew, one phase after the other: a new process is the
+reference's resume workflow, and it frees all of phase A's device memory
+before phase B builds its state; the launching process touches no card.
+One rank with ``--phase a`` or ``b`` runs in the calling process.  A rank
+that fails fails its phase and the tool.
 
 Writes a JSON with the JAX record's fields (``SOAK_B24.json``): the losses
 and ADA's p and r, per-epoch sequences/s, events (checkpoints, the restore,
 validation scores and walls, warnings), the NaN watch over every logged
 metric and a final finiteness sweep over the parameters, plus each phase's
-peak device memory and the restored step.  The partial record is written
-after phase A.  ``ok`` needs no non-finite metric, finite parameters, and
-the final step the restored one plus phase B's steps.  A validation metric
-that fails is recorded as an event and the soak goes on.
+peak device memory (the writer's, and every rank's) and the restored step
+(every rank's), the number of data ranks and their backend, and the
+fixture's digest a phase.  The partial record is written after phase A.
+``ok`` needs no non-finite metric, finite parameters on every rank, and
+the final step the restored one plus phase B's steps; a rank that restores
+another step than the one saved fails phase B.  A validation metric that
+fails is recorded as an event and the soak goes on.
 
     python -m multi_stylegan_torch.tools.soak_b24 --out SOAK_B24_H100.json
     python -m multi_stylegan_torch.tools.soak_b24 --tiny --device cpu --dtype float32 \\
         --batch 4 --epochs 2 --steps_per_epoch 4 --val_samples 8 --val_batch 4 \\
-        --out soak.json
+        --out soak.json [--devices 2]
 
 With ``--tiny`` the teacher is the 32px debug generator (other weights), as
 in tools/stability_run.py.  ``--out`` defaults to another name than the JAX
@@ -43,11 +59,10 @@ tool's, whose default is the TPU record at the root of the repository.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
-import multiprocessing
 import os
 import shutil
-import sys
 import tempfile
 import time
 import warnings
@@ -55,6 +70,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from multi_stylegan_torch.parallel import mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,8 +98,23 @@ def build_parser() -> argparse.ArgumentParser:
                          "down after one out-of-memory error.")
     ap.add_argument("--tiny", action="store_true", help="32px debug config.")
     ap.add_argument("--phase", default="both", choices=("both", "a", "b"),
-                    help="'both' runs phase A and then phase B as separate processes.")
+                    help="'both' runs phase A, then phase B, each in processes of its own.")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="Data ranks, a process each, one card each under --device cuda "
+                         "(default 1); --batch must divide over them.")
     return ap
+
+
+def data_ranks(args) -> int:
+    """The data ranks ``args`` ask for (``--devices``); raises
+    ``ValueError`` when the batch does not divide over them."""
+    n = args.devices
+    if n < 1:
+        raise ValueError(f"--devices {n}: need at least one data rank")
+    if args.batch % n:
+        raise ValueError(f"--batch {args.batch} is the global batch and must divide over "
+                         f"{n} data ranks")
+    return n
 
 
 def phase_config(args, resume: bool, epochs: int):
@@ -98,18 +130,23 @@ def phase_config(args, resume: bool, epochs: int):
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Run the soak (or one phase); returns the record as written."""
-    argv = list(sys.argv[1:] if argv is None else argv)
+    from multi_stylegan_torch.cli.sample import resolve_device
+
     args = build_parser().parse_args(argv)
-    if args.phase == "both":
-        ctx = multiprocessing.get_context("spawn")
-        for phase in ("a", "b"):  # the last --phase given wins
-            p = ctx.Process(target=main, args=(argv + ["--phase", phase],))
-            p.start()
-            p.join()
-            if p.exitcode:
-                raise SystemExit(f"soak phase {phase} exited with {p.exitcode}")
-        with open(args.out) as f:
-            return json.load(f)
+    device = resolve_device(args.device)
+    ranks = data_ranks(args)
+    if args.phase != "both" and ranks == 1:
+        return run_phase(device, args)
+    for phase in ("a", "b") if args.phase == "both" else (args.phase,):
+        report = mesh.spawn(run_phase, (argparse.Namespace(**{**vars(args), "phase": phase}),),
+                            ranks, device)
+    return report
+
+
+def run_phase(device: torch.device, args) -> Dict[str, object]:
+    """Phase ``args.phase`` as this process's rank on ``device``; returns
+    the record (rank 0 writes it), with the warnings raised meanwhile among
+    its events."""
     events: List[dict] = []
     show = warnings.showwarning
 
@@ -119,26 +156,26 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     warnings.showwarning = record_warning
     try:
-        return _run_phase(args, events)
+        return _run_phase(args, device, events)
     finally:
         warnings.showwarning = show
 
 
-def _run_phase(args, events: List[dict]) -> Dict[str, object]:
-    from multi_stylegan_torch.cli.sample import resolve_device
+def _run_phase(args, device: torch.device, events: List[dict]) -> Dict[str, object]:
     from multi_stylegan_torch.data.pipeline import make_loader
     from multi_stylegan_torch.eval.metrics import FID, FVD, IS
     from multi_stylegan_torch.io.logger import Logger
     from multi_stylegan_torch.tools.stability_run import models, nonfinite_params, teacher_fixture
     from multi_stylegan_torch.tools.validation_run import recorded
-    from multi_stylegan_torch.train.draws import TorchDraws
+    from multi_stylegan_torch.train.draws import ShardDraws, TorchDraws
     from multi_stylegan_torch.train.loop import Trainer
     from multi_stylegan_torch.utils.precision import pin_f32
 
-    device = resolve_device(args.device)
     pin_f32()
-    if args.phase == "a":
+    writer = mesh.writes()
+    if args.phase == "a" and writer:
         shutil.rmtree(args.workdir, ignore_errors=True)
+    mesh.barrier()
     ckpt_dir = os.path.join(args.workdir, "ckpt")
     half = args.epochs // 2
     if args.phase == "b" and os.path.exists(args.out):
@@ -155,21 +192,27 @@ def _run_phase(args, events: List[dict]) -> Dict[str, object]:
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
             "events": events, "nan_metrics": [], "ok": False,
         }
+    report.update(data_ranks=mesh.world(), backend=mesh.backend())
 
     generator, discriminator = models(args, device, 0)
     gcfg = generator.config
     report["config"]["resolution"] = list(gcfg.resolution)
     fixture = teacher_fixture(gcfg, args.tiny, args.batch * args.steps_per_epoch, args.dtype,
                               min(args.batch, 8), device)
+    digest = hashlib.sha256(fixture[:]).hexdigest() if writer else None
     metrics_kw = dict(batch_size=args.val_batch, data_samples=args.val_samples,
                       latent_dimensions=gcfg.latent_dimensions, allow_random_weights=True,
                       device=device)
 
     def build_trainer(resume: bool, epochs: int, tag: str) -> Trainer:
+        # the other ranks log to rank 0's experiment and write nothing there
+        logger = Logger(os.path.join(args.workdir, tag)) if writer else None
+        path = mesh.broadcast_object(logger.experiment_path if writer else None)
+        draws = TorchDraws(torch.Generator(device=device).manual_seed(0))
         trainer = Trainer(generator, discriminator, phase_config(args, resume, epochs),
                           make_loader(fixture, args.batch, seed=0, device=device),
-                          TorchDraws(torch.Generator(device=device).manual_seed(0)),
-                          epochs=epochs, data_logger=Logger(os.path.join(args.workdir, tag)),
+                          ShardDraws(draws) if mesh.world() > 1 else draws,
+                          epochs=epochs, data_logger=logger or Logger(path),
                           validation_metrics=tuple(recorded(m(**metrics_kw), events, guard=True)
                                                    for m in (FID, FVD, IS)),
                           checkpoint_dir=ckpt_dir)
@@ -187,11 +230,12 @@ def _run_phase(args, events: List[dict]) -> Dict[str, object]:
         report["nan_metrics"].extend(
             f"{tag}/{name}" for name, vals in sorted(m.items())
             if not np.all(np.isfinite(np.asarray(vals, dtype=np.float64))))
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         report[tag] = {"steps": steps, "wall_s": wall_s,
                        "seqs_per_sec": m.get("seqs_per_sec", []), "trace": trace,
-                       "loss_tail": trace[-3:],
-                       "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
-                                             if device.type == "cuda" else None)}
+                       "loss_tail": trace[-3:], "peak_memory_bytes": peak,
+                       "peak_memory_bytes_by_rank": mesh.gather_objects(peak),
+                       "fixture_sha256": digest}
         return steps
 
     if device.type == "cuda":
@@ -206,9 +250,10 @@ def _run_phase(args, events: List[dict]) -> Dict[str, object]:
         events.append({"event": "latest checkpoint", "step": trainer.ckpt.latest_step()})
         # a phase-B failure keeps phase A's evidence; phase B continues this file
         report["partial"] = "phase A complete"
-        _write(args.out, report)
-        print(json.dumps({"phase": "a", "steps": report["phase_a"]["steps"],
-                          "checkpoint": trainer.ckpt.latest_step()}), flush=True)
+        if writer:
+            _write(args.out, report)
+            print(json.dumps({"phase": "a", "steps": report["phase_a"]["steps"],
+                              "checkpoint": trainer.ckpt.latest_step()}), flush=True)
         return report
 
     steps_a = (report.get("phase_a") or {}).get("steps", 0)
@@ -216,25 +261,30 @@ def _run_phase(args, events: List[dict]) -> Dict[str, object]:
     saved_step = trainer.ckpt.latest_step()
     if not trainer.restore_latest():
         raise RuntimeError(f"phase B found no checkpoint in {ckpt_dir}")
-    restored = trainer.state.step
-    events.append({"event": "restored", "step": restored})
-    if restored != saved_step:
-        raise RuntimeError(f"phase B restored step {restored}, the latest saved is {saved_step}")
-    report["restored_step"] = restored
+    restored = mesh.gather_objects(trainer.state.step)
+    events.append({"event": "restored", "step": restored[0]})
+    if any(step != saved_step for step in restored):
+        raise RuntimeError(f"phase B restored steps {restored} (by rank), the latest saved is "
+                           f"{saved_step}")
+    report["restored_step"], report["restored_step_by_rank"] = restored[0], restored
     trainer.train()
     events.append({"event": "phase B done", "pl_chunks": trainer.path_length.chunks})
     steps_b = harvest(trainer, "phase_b", time.perf_counter() - t0)
-    bad_params = nonfinite_params(trainer.state)
-    report["nonfinite_params"] = bad_params[:20]
+    bad_params = mesh.gather_objects(nonfinite_params(trainer.state))
+    report["nonfinite_params"] = sorted({name for bad in bad_params for name in bad})[:20]
+    report["nonfinite_params_by_rank"] = [len(bad) for bad in bad_params]
     report["final_step"] = trainer.state.step
     report.pop("partial", None)
     report["total_steps"] = steps_a + steps_b
     # a failed save in phase A means an earlier restore point: the expected
     # final step is that point plus phase B's work
-    report["ok"] = (not report["nan_metrics"] and not bad_params and report["final_step"]
-                    == restored + (args.epochs - half) * args.steps_per_epoch)
-    _write(args.out, report)
-    print(json.dumps({k: report[k] for k in ("ok", "total_steps", "final_step")}), flush=True)
+    report["ok"] = (not report["nan_metrics"] and not report["nonfinite_params"]
+                    and report["final_step"]
+                    == restored[0] + (args.epochs - half) * args.steps_per_epoch)
+    if writer:
+        _write(args.out, report)
+        print(json.dumps({k: report[k] for k in ("ok", "total_steps", "final_step")}),
+              flush=True)
     return report
 
 

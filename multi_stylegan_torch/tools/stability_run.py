@@ -71,18 +71,24 @@ def models(args, device, seed: int):
 def teacher_fixture(gcfg, tiny: bool, n_samples: int, dtype: str, batch: int, device):
     """The teacher fixture at ``gcfg``'s resolution: the fixture's
     512-channel generator, or with ``tiny`` the debug config's own (other
-    weights), to keep a debug run small."""
+    weights), to keep a debug run small.  Under several ranks global rank 0
+    draws it and broadcasts it, so that every rank holds the same bits
+    (draws on a card need not repeat bit for bit in another process)."""
     from multi_stylegan_torch.data.synthetic import TeacherTLFMDataset
     from multi_stylegan_torch.models.generator import Generator
+    from multi_stylegan_torch.parallel import mesh
 
-    teacher = None
-    if tiny:
-        teacher = Generator(dataclasses.replace(gcfg, remat=False))
-        teacher.reset_parameters(torch.Generator().manual_seed(17))
-        teacher = teacher.to(device)
-    return TeacherTLFMDataset(n_samples=n_samples, resolution=gcfg.resolution,
-                              compute_dtype=dtype, batch=batch, generator=teacher,
-                              device=device)
+    drawn = None
+    if mesh.process_index() == 0:
+        teacher = None
+        if tiny:
+            teacher = Generator(dataclasses.replace(gcfg, remat=False))
+            teacher.reset_parameters(torch.Generator().manual_seed(17))
+            teacher = teacher.to(device)
+        drawn = TeacherTLFMDataset(n_samples=n_samples, resolution=gcfg.resolution,
+                                   compute_dtype=dtype, batch=batch, generator=teacher,
+                                   device=device)
+    return mesh.broadcast_object(drawn)
 
 
 def nonfinite_params(state) -> List[str]:
