@@ -2108,10 +2108,11 @@ def ddp_iteration(seed: int, batch: int = TRAIN_BATCH) -> dict:
     finally:
         dist.all_reduce = orig_all_reduce
     peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
+    reserved = torch.cuda.max_memory_reserved() / 2**30 if DEVICE == "cuda" else None
     gathered = [[None if g is None else tp.full_tensor(g, d) for g, d in zip(u, opt.shard_dims)]
                 for opt, u in updates]
     out.update(state=state, updates=gathered, metrics=metrics, tier=ladder.chunks,
-               launches=counts, peak_memory_gib=peak, rows=rows)
+               launches=counts, peak_memory_gib=peak, peak_reserved_gib=reserved, rows=rows)
     return out
 
 
@@ -2164,7 +2165,7 @@ def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str, n_mod
     try:
         run = ddp_iteration(seed, batch=batch)
         keys = ("metrics", "seconds", "all_reduce_s", "all_reduces", "all_reduce_mib", "tier",
-                "launches", "sub_step_launches", "peak_memory_gib", "rows")
+                "launches", "sub_step_launches", "peak_memory_gib", "peak_reserved_gib", "rows")
         summary = {k: run[k] for k in keys}
         summary.update(backend=backend, bitwise_equal=ranks_bitwise_equal(run["state"]))
         if rank == 0:
@@ -2174,6 +2175,16 @@ def ddp_rank(rank: int, world: int, init_method: str, seed: int, out: str, n_mod
             json.dump(summary, f)
     finally:
         mesh.shutdown()
+
+
+# The spawned ranks of phases ddp, tp and ddp_uneven share the one card with
+# this process.  Phase ddp_uneven's four ranks each allocate up to ~14.4 GiB
+# at once; the default allocator's split blocks can take their sum over the
+# card's 79 GiB in the path-length update, whose ladder then chunks it and
+# the ranks no longer run the one-process iteration.  Expandable segments
+# keep a rank's reserve within ~0.1 GiB of its peak (H100 80GB HBM3).
+ALLOC_CONF_ENV = "PYTORCH_CUDA_ALLOC_CONF"
+RANK_ALLOC_CONF = "expandable_segments:True"
 
 
 def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int,
@@ -2189,7 +2200,8 @@ def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int
     one-process iteration's those of phase train_iteration (``counts``,
     when given).  Per rank: its rows of each sub-batch, each sub-step's
     seconds, its collectives' seconds, count and MiB, its launches and its
-    peak memory."""
+    peak memory allocated and reserved; the card's free memory as the
+    ranks start, which run with the allocator of ``RANK_ALLOC_CONF``."""
     import torch
 
     ref = ddp_iteration(seed, batch=batch)
@@ -2199,12 +2211,22 @@ def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int
     ref_metrics = ref["metrics"]
     del ref
     empty_cache()
+    card_free = torch.cuda.mem_get_info()[0] / 2**30 if DEVICE == "cuda" else None
+    alloc_conf = os.environ.get(ALLOC_CONF_ENV)
     with tempfile.TemporaryDirectory(prefix=f"{name}_") as out:
         t0 = time.perf_counter()
-        torch.multiprocessing.start_processes(
-            ddp_rank, args=(world, f"file://{os.path.join(out, 'rendezvous')}", seed, out,
-                            n_model, batch),
-            nprocs=world, join=True, start_method="spawn")
+        if RANK_ALLOC_CONF:  # read by each spawned rank as its allocator starts
+            os.environ[ALLOC_CONF_ENV] = RANK_ALLOC_CONF
+        try:
+            torch.multiprocessing.start_processes(
+                ddp_rank, args=(world, f"file://{os.path.join(out, 'rendezvous')}", seed, out,
+                                n_model, batch),
+                nprocs=world, join=True, start_method="spawn")
+        finally:
+            if alloc_conf is None:
+                os.environ.pop(ALLOC_CONF_ENV, None)
+            else:
+                os.environ[ALLOC_CONF_ENV] = alloc_conf
         wall = time.perf_counter() - t0
         ranks = []
         for r in range(world):
@@ -2227,7 +2249,7 @@ def spawned_iteration(name: str, seed: int, world: int, n_model: int, batch: int
                    for k, v in ref_metrics.items() if abs(rank["metrics"][k] - v) > 0}
                   for rank in ranks]
     row = {"world": world, "n_model": n_model, "batch": batch, "wall_s": wall,
-           "one_process": ref_row, "ranks": ranks, "update_errors": errors,
+           "card_free_gib": card_free, "rank_alloc_conf": RANK_ALLOC_CONF, "one_process": ref_row, "ranks": ranks, "update_errors": errors,
            "metric_rel_errors": metric_err}
     print(name, json.dumps(row), flush=True)
     if any(e > 1e-3 for errs in metric_err for e in errs.values()):

@@ -172,19 +172,10 @@ def world_size(args, device: torch.device) -> int:
             raise ValueError(f"--num_processes {args.num_processes} differs from --devices "
                              f"{args.devices} x --model_parallel {n_model} (one rank per "
                              "process, every rank counted)")
-        n_data = args.num_processes // n_model
-    elif args.devices is not None:
-        n_data = args.devices
-    elif device == torch.device("cuda"):
-        n_data = torch.cuda.device_count() // n_model
+        requested = args.num_processes // n_model
     else:
-        n_data = 1
-    if n_data < 1:
-        raise ValueError(f"--devices {n_data}: need at least one data rank")
-    if args.batch_size % n_data:
-        raise ValueError(f"--batch_size {args.batch_size} is the global batch and must "
-                         f"divide over {n_data} data ranks")
-    return n_data * n_model
+        requested = args.devices
+    return mesh.data_ranks(requested, device, args.batch_size, n_model) * n_model
 
 
 def model_configs(tiny: bool, compat_tower2_bug: bool = False, **kw):

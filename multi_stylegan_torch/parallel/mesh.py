@@ -181,6 +181,28 @@ def run_rank(body: Callable, body_args: tuple, rank_: int, world_size: int,
         shutdown()
 
 
+def data_ranks(requested: Optional[int], device: torch.device, batch: int, n_model: int = 1,
+               batch_flag: str = "--batch_size") -> int:
+    """The data ranks of a run on ``device``: ``requested`` when given,
+    else every visible card over ``n_model`` model ranks under a bare
+    ``cuda`` device (the JAX ``make_mesh()`` puts every device on the data
+    axis), else 1.  Raises ``ValueError`` when there is none or the global
+    ``batch`` (the flag ``batch_flag``) does not divide over them, before
+    anything is written."""
+    if requested is not None:
+        n = requested
+    elif device.type == "cuda" and device.index is None:
+        n = torch.cuda.device_count() // n_model
+    else:
+        n = 1
+    if n < 1:
+        raise ValueError(f"--devices {n}: need at least one data rank")
+    if batch % n:
+        raise ValueError(f"{batch_flag} {batch} is the global batch and must divide over "
+                         f"{n} data ranks")
+    return n
+
+
 def spawn(body: Callable, body_args: tuple, world_size: int, device: torch.device,
           n_model: int = 1) -> Any:
     """Run :func:`run_rank` with ``body`` in ``world_size`` processes spawned

@@ -16,11 +16,15 @@ phases:
            model_wrapper.py:121-123), for the second half, ending in another
            validation pass.  The restored step must be the latest saved one.
 
-Both phases train on ``--devices`` data ranks, one process each (default
-one; the JAX tool's ``make_mesh()`` puts every device of the host on the
-data axis, here ``--devices 4`` on four cards).  Each rank trains on its
-rows of every global batch of ``--batch``, which must divide over them, as
-in the training CLI, whose launcher (parallel/mesh.py::spawn) starts them:
+Both phases train on ``--devices`` data ranks, one process each: by
+default every visible card under ``--device cuda`` (the JAX tool's
+``make_mesh()`` puts every device of the host on the data axis) and one
+rank under ``--device cpu`` or ``cuda:N``, by the training CLI's rule
+(parallel/mesh.py::data_ranks).  Each rank trains on its rows of every
+global batch of ``--batch``, which must divide over them (a host of 5 or
+7 cards at batch 24 is refused, as the JAX mesh's batch sharding refuses
+it), as in the training CLI, whose launcher (parallel/mesh.py::spawn)
+starts them:
 NCCL when each rank owns a card, gloo when ranks share one or run on the
 CPU.  Global rank 0 draws the teacher fixture and broadcasts it (the record
 keeps its digest), makes the logger and writes the grids, checkpoints and
@@ -46,7 +50,7 @@ the final step the restored one plus phase B's steps; a rank that restores
 another step than the one saved fails phase B.  A validation metric that
 fails is recorded as an event and the soak goes on.
 
-    python -m multi_stylegan_torch.tools.soak_b24 --out SOAK_B24_H100.json
+    python -m multi_stylegan_torch.tools.soak_b24 --out SOAK_B24_H100.json  # every card
     python -m multi_stylegan_torch.tools.soak_b24 --tiny --device cpu --dtype float32 \\
         --batch 4 --epochs 2 --steps_per_epoch 4 --val_samples 8 --val_batch 4 \\
         --out soak.json [--devices 2]
@@ -99,22 +103,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tiny", action="store_true", help="32px debug config.")
     ap.add_argument("--phase", default="both", choices=("both", "a", "b"),
                     help="'both' runs phase A, then phase B, each in processes of its own.")
-    ap.add_argument("--devices", type=int, default=1,
+    ap.add_argument("--profile_dir", default=None,
+                    help="Write rank 0's torch.profiler trace (Chrome JSON) of phase A's "
+                         "steps 2-5 there (the Trainer's profile window).")
+    ap.add_argument("--devices", type=int, default=None,
                     help="Data ranks, a process each, one card each under --device cuda "
-                         "(default 1); --batch must divide over them.")
+                         "(default: every visible card under --device cuda, else 1); "
+                         "--batch must divide over them.")
     return ap
 
 
-def data_ranks(args) -> int:
-    """The data ranks ``args`` ask for (``--devices``); raises
-    ``ValueError`` when the batch does not divide over them."""
-    n = args.devices
-    if n < 1:
-        raise ValueError(f"--devices {n}: need at least one data rank")
-    if args.batch % n:
-        raise ValueError(f"--batch {args.batch} is the global batch and must divide over "
-                         f"{n} data ranks")
-    return n
+def data_ranks(args, device: torch.device) -> int:
+    """The data ranks ``args`` ask for on ``device`` (the training CLI's
+    rule, :func:`mesh.data_ranks`); raises ``ValueError`` when the batch
+    does not divide over them."""
+    return mesh.data_ranks(args.devices, device, args.batch, batch_flag="--batch")
 
 
 def phase_config(args, resume: bool, epochs: int):
@@ -134,7 +137,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
 
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    ranks = data_ranks(args)
+    ranks = data_ranks(args, device)
     if args.phase != "both" and ranks == 1:
         return run_phase(device, args)
     for phase in ("a", "b") if args.phase == "both" else (args.phase,):
@@ -215,7 +218,8 @@ def _run_phase(args, device: torch.device, events: List[dict]) -> Dict[str, obje
                           epochs=epochs, data_logger=logger or Logger(path),
                           validation_metrics=tuple(recorded(m(**metrics_kw), events, guard=True)
                                                    for m in (FID, FVD, IS)),
-                          checkpoint_dir=ckpt_dir)
+                          checkpoint_dir=ckpt_dir,
+                          profile_dir=args.profile_dir if tag == "phase_a" else None)
         if args.pl_start_tier:
             events.append({"event": f"{tag} pl start tier ignored", "tier": args.pl_start_tier,
                            "chunks": trainer.path_length.chunks})

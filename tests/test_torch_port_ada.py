@@ -17,6 +17,15 @@ from multi_stylegan_tpu.train import ada as jax_ada
 from multi_stylegan_torch.train import ada
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

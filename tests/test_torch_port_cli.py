@@ -24,6 +24,15 @@ from multi_stylegan_torch.models.config import tiny_generator_config
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _expected_names(n):
     return sorted(f"sample_{i}_{d}_0.png" for i in range(n) for d in ("bf", "gfp"))
 

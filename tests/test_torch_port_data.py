@@ -30,6 +30,15 @@ cv2 = pytest.importorskip("cv2")
 COMPRESSIONS = {"default LZW": None, "none": 1, "deflate": 8, "old deflate": 32946}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tags(path):
     with open(path, "rb") as f:
         data = f.read()

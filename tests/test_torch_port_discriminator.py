@@ -37,6 +37,15 @@ from multi_stylegan_torch.nn.attention import NonLocalBlock, max_pool_2x
 from multi_stylegan_torch.nn.normalization import minibatch_std_dev
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 

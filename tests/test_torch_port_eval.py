@@ -48,6 +48,15 @@ NET_TOL = 1e-4
 METRIC_RTOL = 1e-3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randomize(module, seed, fc_gain=3e3):
     """He-scaled conv weights and near-identity batch norms, so that the
     features still vary with the input 40 layers down; a large ``fc`` gain

@@ -27,6 +27,15 @@ ATOL = 1e-4
 RTOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _tiny_init(seed):
     """JAX init params of the tiny config with every leaf perturbed, so

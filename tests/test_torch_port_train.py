@@ -63,6 +63,15 @@ B = 4
 CFG_KW = dict(batch_size=B, ada_p_init=0.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(a):
     return np.asarray(a, np.float32)
 

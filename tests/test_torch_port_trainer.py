@@ -33,6 +33,15 @@ from test_torch_port_eval import _frechet_low_rank
 TRAP = make_trap_weights_map((32, 32), inside_weight=4.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # --------------------------------------------------------------------- CLI
 
 

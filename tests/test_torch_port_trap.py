@@ -6,6 +6,7 @@ draws and tolerances are test_torch_port_train.py's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from multi_stylegan_tpu.train.noise import random_permutation as jax_random_permutation
@@ -26,6 +27,15 @@ from test_torch_port_train import (
 )
 
 TRAP = make_trap_weights_map((32, 32), inside_weight=4.0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread: the suite runs several workers on a few cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _trap_steps():
