@@ -984,11 +984,22 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
            "launches": counts, "launches_by_sub_step": per_sub,
            "k2_dx_only_launches_by_sub_step": dx_only,
            "site_dtypes_by_sub_step": dtypes, "peak_memory_gib": peak, "metrics": host,
-           "ada_p": float(state.ada.p), "top_device_ops": tr.top_device_ops(15), "tf32": tf32}
+           "ada_p": float(state.ada.p), "top_device_ops": top_device_ops(tr.prof), "tf32": tf32}
     print("slice train", json.dumps(row), flush=True)
     del state, gen, disc
     empty_cache()
     return counts, census.sites, row
+
+
+def top_device_ops(prof, n: int = 15) -> list:
+    """The ``n`` device kernels with the most time in a finished
+    ``torch.profiler`` window, in ms."""
+    import torch
+
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    return [{"name": k[:120], "ms": ms, "count": c} for k, ms, c in rows[:n]]
 
 
 def tf32_regularisers(ts, state, real, draws) -> dict:
@@ -1630,7 +1641,7 @@ def phase_train_run(seed: int, iteration_ops: list):
 
         if trainer.trace is None or trainer.trace.path is None:
             raise AssertionError("no profiler trace of the run's last step")
-        top_ops = trainer.trace.top_device_ops(15)
+        top_ops = top_device_ops(trainer.trace.prof)
         frechet = frechet_rows(fd_calls)
         print("frechet", json.dumps(frechet), flush=True)
         ckpt_mb = os.path.getsize(trainer.ckpt.path(steps)) / 2**20

@@ -41,6 +41,7 @@ from multi_stylegan_torch.ops.modulated_conv import (
     modulated_conv_transpose2d,
 )
 from multi_stylegan_torch.parallel import tensor as tp
+from multi_stylegan_torch.utils.profiling import span
 
 _CL = torch.channels_last
 
@@ -359,26 +360,27 @@ class Generator(nn.Module):
         """Convenience forward mirroring the reference signature
         (multi_stylegan_generator.py:114-205).  ``generator`` supplies the
         random inject index and noise where those are drawn here."""
-        cfg = self.config
-        if input_is_latent and z.dim() == 3:
-            wplus = z
-        else:
-            w1 = z if input_is_latent else self.map_latent(z)
-            if z2 is not None:
-                w2 = z2 if input_is_latent else self.map_latent(z2)
-                if inject_index is None:
-                    inject_index = int(torch.randint(
-                        1, cfg.n_latents - 1, (1,), generator=generator,
-                        device=generator.device if generator is not None else "cpu"))
+        with span("g.forward"):
+            cfg = self.config
+            if input_is_latent and z.dim() == 3:
+                wplus = z
             else:
-                w2 = w1
-                inject_index = cfg.n_latents
-            wplus = self.make_wplus(w1, w2, inject_index)
-        if noise is None:
-            if randomize_noise:
-                if generator is None:
-                    raise ValueError("randomize_noise needs a torch.Generator")
-                noise = self.random_noise(z.shape[0], generator)
-            else:
-                noise = self.fixed_noise()
-        return self.synthesize(wplus, noise, return_latents=return_latents)
+                w1 = z if input_is_latent else self.map_latent(z)
+                if z2 is not None:
+                    w2 = z2 if input_is_latent else self.map_latent(z2)
+                    if inject_index is None:
+                        inject_index = int(torch.randint(
+                            1, cfg.n_latents - 1, (1,), generator=generator,
+                            device=generator.device if generator is not None else "cpu"))
+                else:
+                    w2 = w1
+                    inject_index = cfg.n_latents
+                wplus = self.make_wplus(w1, w2, inject_index)
+            if noise is None:
+                if randomize_noise:
+                    if generator is None:
+                        raise ValueError("randomize_noise needs a torch.Generator")
+                    noise = self.random_noise(z.shape[0], generator)
+                else:
+                    noise = self.fixed_noise()
+            return self.synthesize(wplus, noise, return_latents=return_latents)

@@ -58,7 +58,7 @@ from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.robust import RobustPathLength
 from multi_stylegan_torch.train.state import create_train_state
 from multi_stylegan_torch.train.steps import StepFlags, TrainStep
-from multi_stylegan_torch.utils.profiling import Trace
+from multi_stylegan_torch.utils.profiling import Trace, span
 from multi_stylegan_torch.utils.telemetry import RunTelemetry
 
 
@@ -149,16 +149,18 @@ class Trainer:
     def _run_step(self, real: torch.Tensor, flags: StepFlags, lazy_d: bool,
                   lazy_g: bool) -> Dict[str, torch.Tensor]:
         state, step_fn = self.state, self.step_fn
-        metrics = step_fn.main_step(state, real, flags, self.draws)
-        zero = torch.zeros((), device=self.device)
-        metrics["loss_discriminator_regularization"] = (
-            step_fn.r1_update(state, real) if lazy_d else zero)
-        if lazy_g:
-            pl_pen, pl, pl_metrics = self.path_length(state, self.draws)
-        else:
-            pl_pen, pl = zero, zero
-            pl_metrics = {"path_length_chunks": zero, "path_length_skipped": zero}
-        metrics.update(loss_path_length_regularization=pl_pen, path_length=pl, **pl_metrics)
+        # main_step counts the step first: the span carries the step it runs
+        with span("train.step", step=state.step + 1, lazy_d=lazy_d, lazy_g=lazy_g):
+            metrics = step_fn.main_step(state, real, flags, self.draws)
+            zero = torch.zeros((), device=self.device)
+            metrics["loss_discriminator_regularization"] = (
+                step_fn.r1_update(state, real) if lazy_d else zero)
+            if lazy_g:
+                pl_pen, pl, pl_metrics = self.path_length(state, self.draws)
+            else:
+                pl_pen, pl = zero, zero
+                pl_metrics = {"path_length_chunks": zero, "path_length_skipped": zero}
+            metrics.update(loss_path_length_regularization=pl_pen, path_length=pl, **pl_metrics)
         return metrics
 
     def train(self, on_step: Optional[Callable[[int, Dict[str, float]], None]] = None,

@@ -45,6 +45,7 @@ import torch
 
 from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.train.state import TrainState
+from multi_stylegan_torch.utils.profiling import span
 
 
 def pl_chunk_tiers(pl_batch: int) -> Tuple[int, ...]:
@@ -89,7 +90,9 @@ class RobustPathLength:
         active tier, demoted on out-of-memory until a tier runs; None once
         every tier has failed."""
         while self.chunks:
-            out, message = self._try(state, pld)
+            with span("train.path_length.tier", chunks=self.chunks) as tier:
+                out, message = self._try(state, pld)
+                tier.set(ok=out is not None)
             if out is not None:
                 return out
             # the failed pass's tensors went with the exception's frames
@@ -123,14 +126,16 @@ class RobustPathLength:
         EMA); once every tier has failed it is skipped: penalty and length
         0, and the G parameters, the running mean and the EMA as they were."""
         step = self.step
-        out = self.grads(state, step.draw_path_length(state.generator, step.cfg.batch_size, draws))
-        dev = state.mean_path_length.device
-        if out is not None:
-            grads, pen, pl, new_mean = out
-            step.path_length_apply(state, grads, new_mean)
-            return pen, pl, {
-                "path_length_chunks": torch.tensor(float(self.chunks), device=dev),
-                "path_length_skipped": torch.zeros((), device=dev)}
+        with span("train.path_length"):
+            out = self.grads(state, step.draw_path_length(state.generator, step.cfg.batch_size,
+                                                          draws))
+            dev = state.mean_path_length.device
+            if out is not None:
+                grads, pen, pl, new_mean = out
+                step.path_length_apply(state, grads, new_mean)
+                return pen, pl, {
+                    "path_length_chunks": torch.tensor(float(self.chunks), device=dev),
+                    "path_length_skipped": torch.zeros((), device=dev)}
         zero = torch.zeros((), device=dev)
         return zero, zero, {"path_length_chunks": zero,
                             "path_length_skipped": torch.ones((), device=dev)}

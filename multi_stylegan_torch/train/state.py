@@ -38,6 +38,7 @@ from multi_stylegan_torch.models.config import TrainingConfig
 from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.ada import AdaState
+from multi_stylegan_torch.utils.profiling import span
 
 
 class ClippedAdam:
@@ -66,39 +67,40 @@ class ClippedAdam:
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         """Apply one update from ``grads`` (aligned with ``self.params``;
         None = zero).  Returns the device flag of whether it was applied."""
-        grads = [torch.zeros_like(p) if g is None else g.detach()
-                 for p, g in zip(self.params, grads)]
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        squares = [g.float().square().sum() for g in grads]
-        if any(d is not None for d in self.shard_dims):
-            rep = sum(q for q, d in zip(squares, self.shard_dims) if d is None)
-            blocks = mesh.model_sum(torch.stack([
-                sum(q for q, d in zip(squares, self.shard_dims) if d is not None),
-                (~finite).float()]))
-            g_norm = torch.sqrt(rep + blocks[0])
-            finite = blocks[1] == 0
-        else:
-            g_norm = torch.sqrt(sum(squares))
-        if self.skip_nonfinite:
-            self.notfinite_count = torch.where(
-                finite, torch.zeros_like(self.notfinite_count), self.notfinite_count + 1)
-            apply = finite | (self.notfinite_count > self.max_consecutive_nonfinite)
-        else:
-            apply = torch.ones((), dtype=torch.bool, device=finite.device)
-        clip = g_norm >= self.max_norm
-        count = torch.where(apply, self.count + 1, self.count)
-        bc1 = 1.0 - self.b1 ** count.float()
-        bc2 = 1.0 - self.b2 ** count.float()
-        lrs = [lr for params, lr in self.groups for _ in params]
-        for i, (p, g, lr) in enumerate(zip(self.params, grads, lrs)):
-            g = torch.where(clip, g / g_norm * self.max_norm, g)
-            mu = (1.0 - self.b1) * g + self.b1 * self.exp_avg[i]
-            nu = (1.0 - self.b2) * g.square() + self.b2 * self.exp_avg_sq[i]
-            update = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
-            p.copy_(torch.where(apply, p + update, p))
-            self.exp_avg[i] = torch.where(apply, mu, self.exp_avg[i])
-            self.exp_avg_sq[i] = torch.where(apply, nu, self.exp_avg_sq[i])
-        self.count = count
+        with span("train.adam", leaves=len(self.params)):
+            grads = [torch.zeros_like(p) if g is None else g.detach()
+                     for p, g in zip(self.params, grads)]
+            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            squares = [g.float().square().sum() for g in grads]
+            if any(d is not None for d in self.shard_dims):
+                rep = sum(q for q, d in zip(squares, self.shard_dims) if d is None)
+                blocks = mesh.model_sum(torch.stack([
+                    sum(q for q, d in zip(squares, self.shard_dims) if d is not None),
+                    (~finite).float()]))
+                g_norm = torch.sqrt(rep + blocks[0])
+                finite = blocks[1] == 0
+            else:
+                g_norm = torch.sqrt(sum(squares))
+            if self.skip_nonfinite:
+                self.notfinite_count = torch.where(
+                    finite, torch.zeros_like(self.notfinite_count), self.notfinite_count + 1)
+                apply = finite | (self.notfinite_count > self.max_consecutive_nonfinite)
+            else:
+                apply = torch.ones((), dtype=torch.bool, device=finite.device)
+            clip = g_norm >= self.max_norm
+            count = torch.where(apply, self.count + 1, self.count)
+            bc1 = 1.0 - self.b1 ** count.float()
+            bc2 = 1.0 - self.b2 ** count.float()
+            lrs = [lr for params, lr in self.groups for _ in params]
+            for i, (p, g, lr) in enumerate(zip(self.params, grads, lrs)):
+                g = torch.where(clip, g / g_norm * self.max_norm, g)
+                mu = (1.0 - self.b1) * g + self.b1 * self.exp_avg[i]
+                nu = (1.0 - self.b2) * g.square() + self.b2 * self.exp_avg_sq[i]
+                update = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
+                p.copy_(torch.where(apply, p + update, p))
+                self.exp_avg[i] = torch.where(apply, mu, self.exp_avg[i])
+                self.exp_avg_sq[i] = torch.where(apply, nu, self.exp_avg_sq[i])
+            self.count = count
         return apply
 
     def state_dict(self) -> dict:

@@ -6,7 +6,9 @@ cut-mix step, G step, EMA) and, every 16th step, :meth:`r1_update` and
 steps.py:426-514).  Port decisions:
 
 * the state's modules and optimizers update in place; each sub-step returns
-  its metrics as 0-d device tensors, so a step needs no host sync;
+  its metrics as 0-d device tensors, which the step never reads (ADA's
+  angle table and rotation index, and the top-k mask's fill value, still
+  wait on the card: train/ada.py, train/losses.py);
 * every random draw comes from the provider passed in (train/draws.py);
 * the wrong-order side batch is concatenated only when the flag is on, which
   is exactly the JAX step's masked "concat-equivalent" losses;
@@ -63,6 +65,7 @@ from multi_stylegan_torch.train import losses
 from multi_stylegan_torch.train.ada import augment_sequences, calc_r, update_ada_state
 from multi_stylegan_torch.train.ema import ema_update
 from multi_stylegan_torch.train.state import TrainState
+from multi_stylegan_torch.utils.profiling import span
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -201,18 +204,21 @@ class TrainStep:
         """Non-saturating losses on both heads over ADA-augmented reals and
         fakes (+ time-permuted reals when ``wrong_order``), the pixel losses
         trap-weighted when ``trap``; one D update."""
-        losses_, fakes, real_pp, fake_pp, r = self.d_losses(state, real, wrong_order, draws, trap)
-        state.d_opt.step(self._grads(sum(losses_.values()), state.d_opt))
-        self._update_ada(state, r)
+        with span("train.d_step"):
+            losses_, fakes, real_pp, fake_pp, r = self.d_losses(state, real, wrong_order, draws,
+                                                                trap)
+            state.d_opt.step(self._grads(sum(losses_.values()), state.d_opt))
+            self._update_ada(state, r)
         return fakes, real_pp, fake_pp, {k: v.detach() for k, v in losses_.items()}
 
     # ------------------------------------------------------------- R1 step
 
     def r1_step(self, state: TrainState, real: torch.Tensor) -> torch.Tensor:
         """R1 on un-augmented reals (f32), one D update; returns the penalty."""
-        pen = losses.r1_penalty(lambda x: state.discriminator(x, **F32), real)
-        state.d_opt.step(self._grads(self.cfg.w_discriminator_regularization_r1 * pen,
-                                     state.d_opt))
+        with span("train.r1"):
+            pen = losses.r1_penalty(lambda x: state.discriminator(x, **F32), real)
+            state.d_opt.step(self._grads(self.cfg.w_discriminator_regularization_r1 * pen,
+                                         state.d_opt))
         return pen.detach()
 
     # --------------------------------------------------------- cut-mix step
@@ -222,16 +228,17 @@ class TrainStep:
         regularization against the mixed per-pixel predictions."""
         d, w_reg = state.discriminator, self.cfg.w_discriminator_regularization
         h, w = real.shape[-2:]
-        mixed, target = generate_cut_mix_augmentation_data(draws.cut_mix(h, w), real, fakes)
-        _, pp = d(mixed)
-        l_real, l_fake = losses.non_saturating_discriminator_loss_cut_mix(pp, target)
-        l_aug = l_real + l_fake
-        state.d_opt.step(self._grads(w_reg * l_aug, state.d_opt))
-        mixed2, target2 = generate_cut_mix_transformation_data(
-            draws.cut_mix(h, w), real, fakes, real_pp, fake_pp)
-        _, pp = d(mixed2)
-        l_reg = mesh.global_mean((pp - target2).square())
-        state.d_opt.step(self._grads(w_reg * l_reg, state.d_opt))
+        with span("train.cut_mix"):
+            mixed, target = generate_cut_mix_augmentation_data(draws.cut_mix(h, w), real, fakes)
+            _, pp = d(mixed)
+            l_real, l_fake = losses.non_saturating_discriminator_loss_cut_mix(pp, target)
+            l_aug = l_real + l_fake
+            state.d_opt.step(self._grads(w_reg * l_aug, state.d_opt))
+            mixed2, target2 = generate_cut_mix_transformation_data(
+                draws.cut_mix(h, w), real, fakes, real_pp, fake_pp)
+            _, pp = d(mixed2)
+            l_reg = mesh.global_mean((pp - target2).square())
+            state.d_opt.step(self._grads(w_reg * l_reg, state.d_opt))
         return l_aug.detach(), l_reg.detach()
 
     # -------------------------------------------------------------- G step
@@ -244,17 +251,18 @@ class TrainStep:
             v = losses.top_k_v(state.step, self.top_k_start, self.top_k_final)
         else:
             v = 1.0
-        fakes = self.sample_fakes(state.generator, batch, draws)
-        b = fakes.shape[0]
-        pf_s, pf_p = self._d_ada(state, fakes, batch, draws)
-        mask, k = losses.top_k_mask(pf_s, v)
-        loss_scalar = mesh.global_total(F.softplus(-pf_s) * mask) / k
-        per_elem = pf_p.numel() // b
-        raw_px = losses.apply_pixel_weight(F.softplus(-pf_p) * mask.reshape(b, 1, 1, 1, 1),
-                                           self._pixel_weight(trap, pf_p))
-        loss_px = mesh.global_total(raw_px) / (k * per_elem)
-        state.g_opt.step(self._grads(loss_scalar + loss_px, state.g_opt))
-        self._update_ada(state, calc_r(pf_s.detach(), pf_p.detach()))
+        with span("train.g_step"):
+            fakes = self.sample_fakes(state.generator, batch, draws)
+            b = fakes.shape[0]
+            pf_s, pf_p = self._d_ada(state, fakes, batch, draws)
+            mask, k = losses.top_k_mask(pf_s, v)
+            loss_scalar = mesh.global_total(F.softplus(-pf_s) * mask) / k
+            per_elem = pf_p.numel() // b
+            raw_px = losses.apply_pixel_weight(F.softplus(-pf_p) * mask.reshape(b, 1, 1, 1, 1),
+                                               self._pixel_weight(trap, pf_p))
+            loss_px = mesh.global_total(raw_px) / (k * per_elem)
+            state.g_opt.step(self._grads(loss_scalar + loss_px, state.g_opt))
+            self._update_ada(state, calc_r(pf_s.detach(), pf_p.detach()))
         return dict(loss_generator=loss_scalar.detach(),
                     loss_generator_pixel_wise=loss_px.detach(),
                     top_k_v=torch.tensor(v))

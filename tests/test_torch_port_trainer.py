@@ -273,15 +273,23 @@ def test_logger_temp_metrics_equal_jax(tmp_path):
 
 
 def test_profiling_trace_and_step_timer(tmp_path):
-    from multi_stylegan_torch.utils.profiling import StepTimer, trace
+    """A ``Trace`` window's Chrome JSON holds the profiler's events and the
+    program's spans of the window (category ``program``, parent ids), on
+    the profiler's clock: the span encloses the ``aten::mm`` it ran."""
+    from multi_stylegan_torch.utils.profiling import span, trace
 
+    with span("before"):  # no profiler yet: not recorded, not exported
+        pass
     with trace(str(tmp_path / "trace")) as tr:
-        torch.randn(64, 64) @ torch.randn(64, 64)
-    assert tr.path and json.loads(open(tr.path).read())["traceEvents"]
-    assert tr.top_device_ops() == []  # no device here
-    timer = StepTimer()
-    for _ in range(3):
-        with timer.measure():
-            sum(range(1000))
-    summary = timer.summary()
-    assert summary["n"] == 3 and summary["mean_ms"] >= 0 and timer.last_ms == timer.history[-1]
+        with span("outer", step=3):
+            with span("inner"):
+                torch.randn(64, 64) @ torch.randn(64, 64)
+    doc = json.loads(open(tr.path).read())
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    program = {e["name"]: e for e in events if e["cat"] == "program"}
+    assert set(program) == {"outer", "inner"}
+    assert program["outer"]["args"] == {"step": 3, "id": 0}
+    assert program["inner"]["args"] == {"id": 1, "parent": 0}
+    mm = next(e for e in events if e["name"] == "aten::mm")
+    inner = program["inner"]
+    assert inner["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= inner["ts"] + inner["dur"]
