@@ -32,7 +32,9 @@ beside it.  Phases, each raising on failure:
               parameters moved, and each sub-step's K1-K4 launches exactly
               what :func:`expected_launches` works out from the model's
               structure, its dx-only K2 launches what
-              :func:`expected_dx_only` does.  A census of the iteration's
+              :func:`expected_dx_only` does, and the optimizer kernels'
+              (counters zeroed just before) two a clipped Adam step and
+              one an EMA update.  A census of the iteration's
               launches by call site feeds phase 5.  The same iteration runs
               once more under torch.profiler for its top device ops; then
               R1's and path length's gradients of one state with TF32 off
@@ -44,6 +46,16 @@ beside it.  Phases, each raising on failure:
               D-step gradient at batch 1 against the CPU's bf16 plain path,
               max |card - cpu bf16| <= max(4 max |cpu bf16 - cpu f32|,
               2^-8 peak).
+   4c. optim - the optimizer kernels (ops/fused_optim.py) over G's and D's
+              leaves at the paper's widths, each against the plain per-leaf
+              loop on the card from the same state and gradients: a step
+              below the clip the same bits, then one with every 4-d
+              gradient channels-last (the update gathers it, as it gets
+              cuDNN's) the same bits, then a clipped step within rtol 1e-6
+              (and 1e-6 of the leaves' peak); G's EMA update against its
+              plain loop.  Two launches a step, one an EMA; each one's time,
+              the plain loop's and the bytes bound (32 B a value an Adam
+              step, 12 an EMA update).
 5. grads    - at every K1 / K3 call site the iterations launched (batch 24,
               12 and 6): K1 and K3 forward, K2 (dx and db; and the dx-only
               form with an f32 addend, the double backward's) and K4
@@ -154,7 +166,9 @@ soak phases), each counted
 from zero, and ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are
 per f32 regularised training iteration at batch 24: each training call
 site's time per launch times its launches in that iteration, summed.  The ``bf16 iteration kernels`` line does the
-same for the bf16 iteration.
+same for the bf16 iteration.  The optimizer kernels' entries (``clipped_adam``,
+``ema_update``) count the launches of the f32 and bf16 iterations, and
+their times are phase 4c's per step times the iteration's steps.
 """
 
 from __future__ import annotations
@@ -889,7 +903,7 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
 
     from multi_stylegan_torch.io.checkpoint import CheckpointManager, train_state_dict
     from multi_stylegan_torch.models.config import TrainingConfig
-    from multi_stylegan_torch.ops import fused_act
+    from multi_stylegan_torch.ops import fused_act, fused_optim
     from multi_stylegan_torch.train.draws import TorchDraws
     from multi_stylegan_torch.train.state import create_train_state
     from multi_stylegan_torch.train.steps import StepFlags, TrainStep
@@ -924,6 +938,7 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
 
     for name in ("d_step", "cut_mix_step", "g_step"):
         setattr(ts, name, timed(name, getattr(ts, name)))
+    adam_steps = count_adam_steps(state)
     flags = StepFlags(wrong_order=True, do_cut_mix=True, do_ema=False)
     if dtype != "float32":
         # the first bf16 step compiles Triton's bf16 K1 / K2 and lets cuDNN
@@ -933,11 +948,15 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    fused_optim.adam_launches = fused_optim.ema_launches = 0
+    adam_steps[0] = 0
     with Census() as census:
         metrics = timed("main_step", ts.main_step)(state, real, flags, draws)
         r1 = timed("r1_update", ts.r1_update)(state, real)
         pen, pl = timed("path_length_update", ts.path_length_update)(state, draws)
     counts = read_counts()
+    optim = {"adam_steps": adam_steps[0], "adam_launches": fused_optim.adam_launches,
+             "ema_launches": fused_optim.ema_launches}
     peak = torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda" else None
     metrics.update(loss_discriminator_regularization=r1, loss_path_length_regularization=pen,
                    path_length=pl)
@@ -953,6 +972,15 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
         raise AssertionError(f"[{dtype}] parameters did not move: {unmoved[:8]}")
     if all(torch.equal(a, b) for a, b in zip(ema_before, state.g_ema.parameters())):
         raise AssertionError(f"[{dtype}] the EMA did not move")
+    # the optimizers: D once in the D step, twice in cut-mix and once in R1,
+    # G once in the G step and once in path length, which runs the one EMA
+    steps = sum(ITERATION_ADAM_STEPS.values())
+    want = {"adam_steps": steps, "adam_launches": 2 * steps,
+            "ema_launches": ITERATION_EMA_UPDATES}
+    if DEVICE == "cpu":  # a rehearsal: the plain loops launch nothing
+        want.update(adam_launches=0, ema_launches=0)
+    if optim != want:
+        raise AssertionError(f"[{dtype}] optimizer launches {optim}, expected {want}")
     for name in ("d_step", "cut_mix_step", "g_step", "r1_update", "path_length_update"):
         want = expected_launches(gcfg, dcfg, name, wrong_order=(name == "d_step"))
         if per_sub[name] != want:
@@ -981,7 +1009,7 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
         CheckpointManager(save_to).save(state.step, {"train_state": train_state_dict(state)})
     tf32 = tf32_regularisers(ts, state, real, draws) if dtype == "float32" else None
     row = {"dtype": dtype, "ms": first_ms, "ms_under_profiler": timings,
-           "launches": counts, "launches_by_sub_step": per_sub,
+           "launches": counts, "optimizer_launches": optim, "launches_by_sub_step": per_sub,
            "k2_dx_only_launches_by_sub_step": dx_only,
            "site_dtypes_by_sub_step": dtypes, "peak_memory_gib": peak, "metrics": host,
            "ada_p": float(state.ada.p), "top_device_ops": top_device_ops(tr.prof), "tf32": tf32}
@@ -989,6 +1017,183 @@ def phase_train_iteration(seed: int, dtype: str = "float32", save_to: str = ""):
     del state, gen, disc
     empty_cache()
     return counts, census.sites, row
+
+
+# The optimizer updates of one regularised iteration (phase 4's): Adam
+# steps of D (D step, cut-mix's two, R1) and G (G step, path length); EMA
+# updates (path length's; the main step's is off, as on the trainer's
+# path-length steps).
+ITERATION_ADAM_STEPS = {"D": 4, "G": 2}
+ITERATION_EMA_UPDATES = 1
+ADAM_BYTES, EMA_BYTES = 32, 12  # a value's: g read twice, p, m, v read and written; e, p, e
+
+
+def count_adam_steps(state) -> list:
+    """Count both optimizers' steps into the returned one-element list."""
+    calls = [0]
+    for opt in (state.d_opt, state.g_opt):
+        def counted(grads, _step=opt.step):
+            calls[0] += 1
+            return _step(grads)
+        opt.step = counted
+    return calls
+
+
+def adam_tensors(opt) -> dict:
+    """``opt``'s tensors and scalars, as ops/fused_optim.py's steps take them."""
+    return dict(params=opt.params, exp_avg=opt.exp_avg, exp_avg_sq=opt.exp_avg_sq,
+                count=opt.count, notfinite_count=opt.notfinite_count,
+                lrs=[lr for ps, lr in opt.groups for _ in ps],
+                sharded=[d is not None for d in opt.shard_dims], hyper=opt.hyper())
+
+
+def optim_gap(fused, plain) -> tuple:
+    """The widest gap of the parameters and both moments, absolute and over
+    each kind's peak; and whether every one is the same bits."""
+    import torch
+
+    worst, rel, same = 0.0, 0.0, True
+    for kind in ("params", "exp_avg", "exp_avg_sq"):
+        got = [t.detach() for t in getattr(fused, kind)]
+        want = [t.detach() for t in getattr(plain, kind)]
+        peak = max(float(t.abs().max()) for t in want)
+        for a, b in zip(got, want):
+            gap = float((a - b).abs().max())
+            worst = max(worst, gap)
+            rel = max(rel, gap / max(peak, 1e-30))
+            same = same and torch.equal(a, b)
+    return worst, rel, same
+
+
+def optim_grads(opt, seed: int, norm: float, channels_last: bool = False) -> list:
+    """N(0, 1) gradients scaled to the global norm ``norm``; with
+    ``channels_last`` every 4-d one in that memory order."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=DEVICE) for p in opt.params]
+    scale = norm / float(torch.sqrt(sum(g.square().sum() for g in grads)))
+    grads = [g * scale for g in grads]
+    if channels_last:
+        grads = [g.contiguous(memory_format=torch.channels_last) if g.dim() == 4 else g
+                 for g in grads]
+    return grads
+
+
+def phase_optim(seed: int) -> dict:
+    """The optimizer kernels against the plain loops at the paper's widths
+    (the module docstring's phase 4c)."""
+    import copy
+
+    import torch
+
+    from multi_stylegan_torch.models.config import TrainingConfig
+    from multi_stylegan_torch.ops import fused_optim
+    from multi_stylegan_torch.train.state import (
+        make_discriminator_optimizer,
+        make_generator_optimizer,
+    )
+
+    (gcfg, dcfg), cfg = train_configs("float32"), TrainingConfig()
+    rows = {}
+    for name, model, make in (
+            ("G", random_generator(gcfg, seed + 40).to(DEVICE), make_generator_optimizer),
+            ("D", random_discriminator(dcfg, seed + 41).to(DEVICE),
+             make_discriminator_optimizer)):
+        fused = make(model, cfg)
+        plain = copy.deepcopy(fused)
+        values = sum(p.numel() for p in fused.params)
+        limit = cfg.grad_clip_norm
+        row = {"leaves": len(fused.params), "values": values}
+        # below the clip, the same bits; so again with channels-last
+        # gradients; then a clipped step within rtol 1e-6
+        for k, (step, norm, cl) in enumerate((("unclipped", 0.5 * limit, False),
+                                              ("channels_last", 0.5 * limit, True),
+                                              ("clipped", 10.0 * limit, False))):
+            grads = optim_grads(fused, seed + 50 + k, norm, cl)
+            launches = fused_optim.adam_launches
+            applied = fused.step(grads)
+            launches = fused_optim.adam_launches - launches
+            fused_optim.clipped_adam_ref(grads=grads, **adam_tensors(plain))
+            sync()
+            worst, rel, same = optim_gap(fused, plain)
+            row[step] = {"max_abs_err": worst, "max_rel_to_peak": rel, "bitwise": same,
+                         "launches": launches}
+            if not bool(applied) or launches != (2 if DEVICE == "cuda" else 0):
+                raise AssertionError(f"optim {name} {step}: applied {bool(applied)}, "
+                                     f"{launches} launches")
+            if step != "clipped" and not same:
+                raise AssertionError(f"optim {name} {step}: not the plain loop's bits "
+                                     f"(max gap {worst})")
+            for kind in ("params", "exp_avg", "exp_avg_sq"):
+                got, want = getattr(fused, kind), getattr(plain, kind)
+                peak = max(float(t.detach().abs().max()) for t in want)
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a.detach(), b.detach(), rtol=1e-6,
+                                               atol=1e-6 * peak)
+            if int(fused.count) != int(plain.count) or int(fused.count) != k + 1:
+                raise AssertionError(f"optim {name} {step}: counts {int(fused.count)}, "
+                                     f"{int(plain.count)}")
+        grads = optim_grads(fused, seed + 60, 0.5 * limit)
+        grads_cl = optim_grads(fused, seed + 60, 0.5 * limit, channels_last=True)
+        row["ms"] = cuda_ms(lambda: fused.step(grads))
+        row["ms_channels_last"] = cuda_ms(lambda: fused.step(grads_cl))
+        row["plain_ms"] = cuda_ms(
+            lambda: fused_optim.clipped_adam_ref(grads=grads, **adam_tensors(plain)))
+        row["bound_ms"] = values * ADAM_BYTES / HBM_BYTES_PER_S * 1e3
+        rows[f"adam.{name}"] = row
+        if name == "G":
+            params = list(model.parameters())
+            ema = [p.detach().clone() + 0.01 for p in params]
+            ema_plain = [e.clone() for e in ema]
+            launches = fused_optim.ema_launches
+            fused_optim.ema_update(ema, params, cfg.ema_decay)
+            launches = fused_optim.ema_launches - launches
+            fused_optim.ema_update_ref(ema_plain, params, cfg.ema_decay)
+            sync()
+            peak = max(float(e.abs().max()) for e in ema_plain)
+            worst = max(float((a - b).abs().max()) for a, b in zip(ema, ema_plain))
+            same = all(torch.equal(a, b) for a, b in zip(ema, ema_plain))
+            if launches != (1 if DEVICE == "cuda" else 0):
+                raise AssertionError(f"optim EMA: {launches} launches")
+            for a, b in zip(ema, ema_plain):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * peak)
+            rows["ema.G"] = {
+                "values": values, "max_abs_err": worst, "bitwise": same, "launches": launches,
+                "ms": cuda_ms(lambda: fused_optim.ema_update(ema, params, cfg.ema_decay)),
+                "plain_ms": cuda_ms(
+                    lambda: fused_optim.ema_update_ref(ema_plain, params, cfg.ema_decay)),
+                "bound_ms": values * EMA_BYTES / HBM_BYTES_PER_S * 1e3}
+            del ema, ema_plain
+        del fused, plain, model, grads, grads_cl
+        empty_cache()
+    print("optim", json.dumps(rows), flush=True)
+    return rows
+
+
+def optim_kernel_rows(optim: dict, iterations: list) -> list:
+    """The kernels line's entries for the optimizer kernels: the launches
+    of ``iterations`` (phase 4's ``optimizer_launches``), times per f32
+    regularised iteration (phase 4c's per step times its steps)."""
+    def per_iteration(key):
+        return sum(optim[f"adam.{m}"][key] * n for m, n in ITERATION_ADAM_STEPS.items())
+
+    adam_err = max(optim[f"adam.{m}"][s]["max_abs_err"] for m in ITERATION_ADAM_STEPS
+                   for s in ("unclipped", "channels_last", "clipped"))
+    source = "multi_stylegan_torch/csrc/fused_optim.cu"
+    return [
+        {"name": "clipped_adam", "route": "cuda", "source": source, "replaces": None,
+         "launches": sum(i["adam_launches"] for i in iterations), "max_abs_err": adam_err,
+         "ms": per_iteration("ms"), "plain_ms": per_iteration("plain_ms"),
+         "bound_ms": per_iteration("bound_ms"), "bound_by": "bytes", "library_ms": None},
+        {"name": "ema_update", "route": "cuda", "source": source, "replaces": None,
+         "launches": sum(i["ema_launches"] for i in iterations),
+         "max_abs_err": optim["ema.G"]["max_abs_err"],
+         "ms": ITERATION_EMA_UPDATES * optim["ema.G"]["ms"],
+         "plain_ms": ITERATION_EMA_UPDATES * optim["ema.G"]["plain_ms"],
+         "bound_ms": ITERATION_EMA_UPDATES * optim["ema.G"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+    ]
 
 
 def top_device_ops(prof, n: int = 15) -> list:
@@ -2680,6 +2885,7 @@ def main() -> int:
         bf16_counts, census_bf16, bf16_row = phase(
             "bf16_iteration", phase_train_iteration, args.seed, "bfloat16", save_to=trained)
         bf16_row["parity"] = phase("bf16_parity", phase_bf16_parity, args.seed)
+        optim_row = phase("optim", phase_optim, args.seed)
         train_rows, k2_edge_row = phase("grads", phase_grad_sites, args.seed, census, census_bf16)
         parity_row = phase("parity", phase_train_parity, args.seed)
         seq_counts, seq_row = phase("sequential_fft", phase_sequential_fft, args.seed)
@@ -2710,6 +2916,8 @@ def main() -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     line = kernel_line(train_rows, report, launches)
+    line["kernels"] += optim_kernel_rows(
+        optim_row, [iter_row["optimizer_launches"], bf16_row["optimizer_launches"]])
     bf16_kernels = bf16_iteration_kernels(train_rows)
     print("bf16 iteration kernels", json.dumps(bf16_kernels))
     seconds["total"] = time.perf_counter() - t_start
@@ -2718,6 +2926,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": smi, "sampling_sites": report, "slice": slice_row,
              "train_cli": cli_row, "train_iteration": iter_row, "bf16_iteration": bf16_row,
+             "optim": optim_row,
              "bf16_iteration_kernels": bf16_kernels, "train_sites": train_rows,
              "k2_edge": k2_edge_row,
              "train_parity": parity_row, "sequential_fft": seq_row, "pl_chunked": pl_row,

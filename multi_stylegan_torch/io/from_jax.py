@@ -168,8 +168,9 @@ def _load_optimizer(opt, module, mu_sd, nu_sd, count: int, notfinite: int) -> No
     names = {id(p): n for n, p in module.named_parameters()}
     for i, p in enumerate(opt.params):
         name = names[id(p)]
-        opt.exp_avg[i] = mu_sd[name].reshape(p.shape)
-        opt.exp_avg_sq[i] = nu_sd[name].reshape(p.shape)
+        # into the optimizer's own tensors: the fused step's tables point there
+        opt.exp_avg[i].copy_(mu_sd[name].reshape(p.shape))
+        opt.exp_avg_sq[i].copy_(nu_sd[name].reshape(p.shape))
     opt.count.fill_(count)
     opt.notfinite_count.fill_(notfinite)
 

@@ -173,7 +173,7 @@ def install_adam_moments(opt: ClippedAdam, module: torch.nn.Module,
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"moment of '{name}' has shape {tuple(src[name].shape)}, "
                                  f"the parameter {tuple(p.shape)}")
-            moments[i] = value.to(device=p.device, dtype=p.dtype).clone()
+            moments[i].copy_(value)  # the optimizer's own tensor keeps its identity
     opt.count.fill_(count)
 
 

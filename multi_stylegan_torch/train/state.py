@@ -15,8 +15,11 @@ pieces differ where it matters:
   for up to ``max_consecutive_nonfinite`` bad steps in a row; after that it
   is applied anyway, as ``optax.apply_if_finite`` does.
 
-Everything stays on the device: the skip is a ``torch.where`` on a device
-flag, so a step needs no host sync.  Parameters update in place.
+Everything stays on the device: the skip is decided there from a device
+flag, so a step needs no host sync.  Parameters, moments and both counters
+update in place.  The step itself is ``ops/fused_optim.py``: on the card
+two multi-tensor launches over every leaf, on the CPU the plain per-leaf
+loop it is held against.
 
 Under tensor parallelism (parallel/tensor.py) a sharded parameter, its
 gradient and its moments are this rank's block: the global norm adds the
@@ -35,6 +38,7 @@ import torch
 from torch import nn
 
 from multi_stylegan_torch.models.config import TrainingConfig
+from multi_stylegan_torch.ops import fused_optim
 from multi_stylegan_torch.parallel import mesh
 from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.train.ada import AdaState
@@ -62,46 +66,24 @@ class ClippedAdam:
         self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.tables: Optional[fused_optim.AdamTables] = None  # the kernels', on the card
 
-    @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
         """Apply one update from ``grads`` (aligned with ``self.params``;
         None = zero).  Returns the device flag of whether it was applied."""
-        with span("train.adam", leaves=len(self.params)):
-            grads = [torch.zeros_like(p) if g is None else g.detach()
-                     for p, g in zip(self.params, grads)]
-            finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            squares = [g.float().square().sum() for g in grads]
-            if any(d is not None for d in self.shard_dims):
-                rep = sum(q for q, d in zip(squares, self.shard_dims) if d is None)
-                blocks = mesh.model_sum(torch.stack([
-                    sum(q for q, d in zip(squares, self.shard_dims) if d is not None),
-                    (~finite).float()]))
-                g_norm = torch.sqrt(rep + blocks[0])
-                finite = blocks[1] == 0
-            else:
-                g_norm = torch.sqrt(sum(squares))
-            if self.skip_nonfinite:
-                self.notfinite_count = torch.where(
-                    finite, torch.zeros_like(self.notfinite_count), self.notfinite_count + 1)
-                apply = finite | (self.notfinite_count > self.max_consecutive_nonfinite)
-            else:
-                apply = torch.ones((), dtype=torch.bool, device=finite.device)
-            clip = g_norm >= self.max_norm
-            count = torch.where(apply, self.count + 1, self.count)
-            bc1 = 1.0 - self.b1 ** count.float()
-            bc2 = 1.0 - self.b2 ** count.float()
-            lrs = [lr for params, lr in self.groups for _ in params]
-            for i, (p, g, lr) in enumerate(zip(self.params, grads, lrs)):
-                g = torch.where(clip, g / g_norm * self.max_norm, g)
-                mu = (1.0 - self.b1) * g + self.b1 * self.exp_avg[i]
-                nu = (1.0 - self.b2) * g.square() + self.b2 * self.exp_avg_sq[i]
-                update = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
-                p.copy_(torch.where(apply, p + update, p))
-                self.exp_avg[i] = torch.where(apply, mu, self.exp_avg[i])
-                self.exp_avg_sq[i] = torch.where(apply, nu, self.exp_avg_sq[i])
-            self.count = count
-        return apply
+        fused = self.params[0].device.type == "cuda"
+        with span("train.adam", leaves=len(self.params), fused=fused):
+            sharded = [d is not None for d in self.shard_dims]
+            applied, self.tables = fused_optim.clipped_adam(
+                self.params, self.exp_avg, self.exp_avg_sq, grads, self.count,
+                self.notfinite_count, [lr for params, lr in self.groups for _ in params],
+                sharded, self.hyper(), mesh.model_sum if any(sharded) else None, self.tables)
+            return applied
+
+    def hyper(self) -> fused_optim.AdamHyper:
+        """The step's scalars."""
+        return fused_optim.AdamHyper(self.b1, self.b2, self.eps, self.max_norm,
+                                     self.skip_nonfinite, self.max_consecutive_nonfinite)
 
     def state_dict(self) -> dict:
         """The Adam moments (aligned with ``params``) and both counters."""

@@ -11,11 +11,18 @@ import math
 import pytest
 import torch
 
-from multi_stylegan_torch.models.config import tiny_generator_config
+from multi_stylegan_torch.models.config import (
+    DiscriminatorConfig,
+    GeneratorConfig,
+    tiny_discriminator_config,
+    tiny_generator_config,
+)
+from multi_stylegan_torch.models.discriminator import Discriminator
 from multi_stylegan_torch.models.generator import Generator
-from multi_stylegan_torch.ops import fused_act
+from multi_stylegan_torch.ops import fused_act, fused_optim
 from multi_stylegan_torch.ops import upfirdn2d as up_mod
 from multi_stylegan_torch.ops.blur import make_blur_kernel
+from multi_stylegan_torch.train.state import ClippedAdam
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +357,239 @@ def test_zero_rows_launch_nothing(cuda, dtype):
         fused_act.fused_leaky_relu(torch.randn(2, 8, 8, 0, device=cuda, dtype=dtype), None)
     with pytest.raises(ValueError, match="empty"):
         up_mod.upfirdn2d(torch.randn(2, 0, 8, 16, device=cuda, dtype=dtype), taps, pad=(2, 1))
+
+
+# ------------------------------------------------- the fused optimizer updates
+
+
+def _leaf_groups(cuda, model, size):
+    """A model's leaves in its optimizer's groups, as the trainer makes them
+    (G: the style mapping at lr x 0.01), each N(0, 1) from a seed."""
+    if model == "G":
+        gen = Generator(tiny_generator_config() if size == "tiny" else GeneratorConfig(),
+                        device=cuda)
+        style = {id(p) for p in gen.style_mapping.parameters()}
+        groups = [([p for p in gen.parameters() if id(p) not in style], 2e-4),
+                  (list(gen.style_mapping.parameters()), 2e-6)]
+    else:
+        disc = Discriminator(tiny_discriminator_config() if size == "tiny"
+                             else DiscriminatorConfig(), device=cuda)
+        groups = [(list(disc.parameters()), 6e-4)]
+    seeded = torch.Generator(device=cuda).manual_seed(7)
+    with torch.no_grad():
+        for ps, _ in groups:
+            for p in ps:
+                p.copy_(torch.randn(p.shape, generator=seeded, device=cuda))
+    return groups
+
+
+def _twins(groups, n=2, **kw):
+    """``n`` optimizers over copies of the same leaves."""
+    return [ClippedAdam([([torch.nn.Parameter(p.detach().clone()) for p in ps], lr)
+                         for ps, lr in groups], **kw) for _ in range(n)]
+
+
+def _tensors(opt):
+    """``opt``'s tensors and scalars, as ops/fused_optim.py's steps take them."""
+    return dict(params=opt.params, exp_avg=opt.exp_avg, exp_avg_sq=opt.exp_avg_sq,
+                count=opt.count, notfinite_count=opt.notfinite_count,
+                lrs=[lr for ps, lr in opt.groups for _ in ps],
+                sharded=[d is not None for d in opt.shard_dims], hyper=opt.hyper())
+
+
+def _plain_step(opt, grads, model_sum=None):
+    return fused_optim.clipped_adam_ref(grads=grads, model_sum=model_sum, **_tensors(opt))
+
+
+def _other_layout(i, g):
+    """Leaf ``i``'s gradient ``g`` in another memory order, as cuDNN gives a
+    conv weight's: channels-last or input channels outermost (4-d, in
+    turn), column-major (2-d); 5-d with its dims 1 and 2 swapped, which the
+    kernels do not read (copied)."""
+    if g.dim() == 4 and i % 2:
+        return g.contiguous(memory_format=torch.channels_last)
+    if g.dim() in (2, 4):
+        return g.transpose(0, 1).contiguous().transpose(0, 1)
+    if g.dim() == 5:
+        return g.transpose(1, 2).contiguous().transpose(1, 2)
+    return g
+
+
+def _step_grads(opt, seed, norm, nones=(), nan_leaf=None, layouts=False):
+    """Gradients of global norm ``norm``; None at the leaves ``nones``, a
+    NaN in leaf ``nan_leaf``; with ``layouts``, in other memory orders
+    (:func:`_other_layout`)."""
+    gen = torch.Generator(device=opt.params[0].device).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=p.device) for p in opt.params]
+    total = torch.sqrt(sum(g.square().sum() for g in grads))
+    grads = [g * (norm / total) for g in grads]
+    if nan_leaf is not None:
+        grads[nan_leaf].view(-1)[grads[nan_leaf].numel() // 2] = float("nan")
+    if layouts:
+        grads = [_other_layout(i, g) for i, g in enumerate(grads)]
+    return [None if i in nones else g for i, g in enumerate(grads)]
+
+
+def _state_of(opt):
+    return [t.detach().clone() for t in opt.params + opt.exp_avg + opt.exp_avg_sq] + [
+        opt.count.clone(), opt.notfinite_count.clone()]
+
+
+def _assert_matches(fused, plain, exact=False, equal_nan=False):
+    """Parameters and moments: the same bits where the step did not clip
+    (every operation is the plain loop's), else within rtol 1e-6 of each
+    value and of the model's peak of its kind: the clip scales by max_norm
+    / g_norm, and g_norm sums the squares in another order (a last-bit
+    difference, which a value near zero, where p + update or (1 - b1) g +
+    b1 m cancel, carries as a large relative one)."""
+    for kind in ("params", "exp_avg", "exp_avg_sq"):
+        got = [t.detach() for t in getattr(fused, kind)]
+        want = [t.detach() for t in getattr(plain, kind)]
+        peak = max(float(torch.nan_to_num(t, nan=0.0).abs().max()) for t in want)
+        for a, b in zip(got, want):
+            if exact:
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * peak,
+                                           equal_nan=equal_nan)
+    assert int(fused.count) == int(plain.count)
+    assert int(fused.notfinite_count) == int(plain.notfinite_count)
+
+
+@pytest.mark.parametrize("b1", [0.0, 0.9])
+@pytest.mark.parametrize("size", ["tiny", "paper"])
+@pytest.mark.parametrize("model", ["G", "D"])
+def test_fused_adam_matches_the_plain_loop(cuda, model, size, b1):
+    """The fused step against the plain loop on the card, step after step:
+    the clip firing (with None gradients), not firing, a non-finite
+    gradient skipped twice (parameters, moments and count the same bits,
+    the skip counter up by one each time), then applied anyway past
+    ``max_consecutive_nonfinite``; G's two lr groups; at most 4 launches a
+    step."""
+    fused, plain = _twins(_leaf_groups(cuda, model, size), b1=b1, max_consecutive_nonfinite=2)
+    n = len(fused.params)
+    steps = [dict(seed=1, norm=0.5, nones=set(range(0, n, 5))),   # no clip
+             dict(seed=2, norm=50.0, nones=set(range(2, n, 7))),  # the clip fires
+             dict(seed=3, norm=0.5, layouts=True),                 # other layouts
+             dict(seed=4, norm=50.0, nones={n - 1}, layouts=True)]
+    for k, kw in enumerate(steps):
+        before = fused_optim.adam_launches
+        grads = _step_grads(fused, **kw)
+        assert any(g is not None and not g.is_contiguous()
+                   for g in grads) == kw.get("layouts", False)
+        copied = sum(g is not None and not g.is_contiguous() and g.dim() == 5 for g in grads)
+        applied = fused.step(grads)
+        launches = fused_optim.adam_launches - before
+        # two launches, and a copy of each gradient in a layout they do not read
+        assert launches - copied == 2
+        assert bool(_plain_step(plain, _step_grads(plain, **kw)))
+        assert bool(applied)
+        _assert_matches(fused, plain, exact=k == 0)
+    nan_leaf = n // 2
+    for k in (1, 2):  # skipped: nothing moves but the skip counter
+        was = _state_of(fused)
+        applied = fused.step(_step_grads(fused, 10 + k, 1.0, nan_leaf=nan_leaf))
+        assert not bool(applied)
+        now = _state_of(fused)
+        assert all(torch.equal(a, b) for a, b in zip(was[:-1], now[:-1]))
+        assert int(now[-1]) == int(was[-1]) + 1 == k
+        _plain_step(plain, _step_grads(plain, 10 + k, 1.0, nan_leaf=nan_leaf))
+        _assert_matches(fused, plain)
+    applied = fused.step(_step_grads(fused, 13, 1.0, nan_leaf=nan_leaf))  # forced
+    assert bool(applied) and int(fused.notfinite_count) == 3 and int(fused.count) == 5
+    _plain_step(plain, _step_grads(plain, 13, 1.0, nan_leaf=nan_leaf))
+    _assert_matches(fused, plain, equal_nan=True)
+    assert bool(fused.params[nan_leaf].isnan().any())
+
+
+@pytest.mark.parametrize("model", ["G", "D"])
+def test_fused_adam_is_the_same_bits_every_run(cuda, model):
+    a, b = _twins(_leaf_groups(cuda, model, "paper"))
+    for seed, norm in ((1, 50.0), (2, 0.5), (3, 50.0)):
+        a.step(_step_grads(a, seed, norm))
+        b.step(_step_grads(b, seed, norm))
+    assert all(torch.equal(x, y) for x, y in zip(_state_of(a), _state_of(b)))
+
+
+def test_fused_adam_keeps_the_sharded_sum_apart(cuda):
+    """Tensor-parallel leaves: the sharded sum and the non-finite flag go
+    through ``model_sum`` (here a stand-in for two ranks holding the same
+    block), the replicated sum does not, as in the plain loop."""
+    groups = _leaf_groups(cuda, "G", "tiny")
+    n = sum(len(ps) for ps, _ in groups)
+    dims = [0 if i % 3 == 0 else None for i in range(n)]
+    fused, plain = _twins(groups, shard_dims=dims)
+    calls = []
+
+    def two_ranks(x):
+        calls.append(x.clone())
+        return x * 2
+
+    for seed, norm in ((1, 2.0), (2, 20.0)):  # with the doubled sum: no clip, then a clip
+        _, fused.tables = fused_optim.clipped_adam(
+            grads=_step_grads(fused, seed, norm), model_sum=two_ranks, tables=fused.tables,
+            **_tensors(fused))
+        _plain_step(plain, _step_grads(plain, seed, norm), two_ranks)
+        _assert_matches(fused, plain, exact=norm < 3)
+    torch.testing.assert_close(calls[0], calls[1], rtol=1e-6, atol=0)  # fused, plain
+
+
+def test_fused_adam_follows_a_changed_learning_rate(cuda):
+    """The kernels' tables hold each leaf's learning rate: a group's new
+    rate after a step is the one the next step takes."""
+    fused, plain = _twins(_leaf_groups(cuda, "G", "tiny"))
+    for k, (seed, norm) in enumerate(((1, 0.5), (2, 0.5))):
+        if k:
+            for opt in (fused, plain):
+                opt.groups[1] = (opt.groups[1][0], 3e-3)
+        fused.step(_step_grads(fused, seed, norm))
+        _plain_step(plain, _step_grads(plain, seed, norm))
+        _assert_matches(fused, plain, exact=True)
+    assert fused.tables.key[3][-1] == 3e-3
+
+
+def test_fused_adam_takes_unaligned_gradients(cuda):
+    """Gradients that are views into one bucket at 4-byte offsets (a
+    data-parallel all-reduce's) take the scalar form."""
+    fused, plain = _twins(_leaf_groups(cuda, "D", "tiny"))
+    for seed, norm in ((1, 0.5), (2, 20.0)):
+        grads = _step_grads(fused, seed, norm)
+        flat = torch.cat([torch.zeros(1, device=cuda)] + [g.reshape(-1) for g in grads])
+        views, at = [], 1
+        for g in grads:
+            views.append(flat[at:at + g.numel()].view(g.shape))
+            at += g.numel()
+        assert views[0].data_ptr() % 16 != 0
+        fused.step(views)
+        _plain_step(plain, grads)
+        _assert_matches(fused, plain, exact=norm < 5)
+
+
+def test_fused_adam_refuses_what_it_does_not_take(cuda):
+    (opt,) = _twins(_leaf_groups(cuda, "D", "tiny"), n=1)
+    grads = _step_grads(opt, 1, 1.0)
+    with pytest.raises(ValueError, match="must be an f32"):
+        opt.step([grads[0].to(torch.bfloat16)] + grads[1:])
+    with pytest.raises(ValueError, match="must be an f32"):
+        opt.step([grads[0].reshape(-1)] + grads[1:])
+    with pytest.raises(ValueError, match="gradients for"):
+        opt.step(grads[:-1])
+
+
+@pytest.mark.parametrize("size", ["tiny", "paper"])
+def test_fused_ema_matches_the_plain_loop(cuda, size):
+    torch.manual_seed(3)
+    cfg = tiny_generator_config() if size == "tiny" else GeneratorConfig()
+    model = Generator(cfg, device=cuda)
+    ema = [p.detach().clone() + 0.01 for p in model.parameters()]
+    plain = [e.clone() for e in ema]
+    for _ in range(2):
+        before = fused_optim.ema_launches
+        fused_optim.ema_update(ema, list(model.parameters()), 0.999)
+        assert fused_optim.ema_launches - before == 1
+        fused_optim.ema_update_ref(plain, list(model.parameters()), 0.999)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.1)
+    for a, b in zip(ema, plain):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-30)
