@@ -4,8 +4,12 @@ Mirrors ``GeneratorConfig``, ``DiscriminatorConfig``, ``TrainingConfig`` and
 the ``tiny_*`` factories of the JAX package field for field (reference
 multi_stylegan/config.py:6-57 and train_multi_stylegan.py:4-28), so a config
 built with the same keyword arguments describes the same network and run in
-both.  The models' ``compute_dtype`` is what the trainer's D, cut-mix and G
-steps run in (R1 and path length always run in f32);
+both.  ``GeneratorConfig`` has three fields more, whose defaults are the
+JAX package's network: ``up_kernel_size``, ``skip_upsample_gain`` and
+``rgb_bias_per_channel`` build StyleGAN2's generator (config F, one tower
+through ``num_domains``), which the JAX package does not have.  The
+models' ``compute_dtype`` is what the trainer's D, cut-mix and G steps run
+in (R1 and path length always run in f32);
 ``TrainingConfig.ada_sequential_warps`` picks ADA's four sequential warps
 over the composed one.  ``TrainingConfig.compute_dtype`` is kept for that
 equality and read by nothing: the CLI sets the models' dtype.
@@ -30,8 +34,18 @@ class GeneratorConfig:
     # Frames generated per domain (multi_stylegan_generator.py:30).
     sequence_length: int = 3
     # Number of imaging domains (towers); the reference hard-codes 2 (BF+GFP).
+    # Tower 1 owns the style affines; StyleGAN2 is one tower of T = 3 (RGB).
     num_domains: int = 2
     blur_taps: Tuple[int, ...] = (1, 3, 3, 1)
+    # The upsampling conv's kernel: Multi-StyleGAN's k2 s2 transposed conv,
+    # whose windows never overlap, or StyleGAN2's k3 s2 (config F).
+    up_kernel_size: int = 2
+    # Gain of the output blocks' skip upsample: 1 is Multi-StyleGAN's plain
+    # normalized kernel, 4 (factor**2) StyleGAN2's upfirdn2d(up=2).
+    skip_upsample_gain: float = 1.0
+    # The output blocks' bias: one scalar (Multi-StyleGAN) or one per
+    # output channel (StyleGAN2's toRGB, [1, T, 1, 1]).
+    rgb_bias_per_channel: bool = False
     # Reference quirk: the tower-2 output blocks consume tower-1 features
     # (multi_stylegan_generator.py:189).  True reproduces the published
     # checkpoint's behaviour; False is the symmetric wiring.

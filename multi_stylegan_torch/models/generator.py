@@ -2,8 +2,11 @@
 
 Architecture: reference multi_stylegan/multi_stylegan_generator.py and the
 JAX package's models/generator.py.  Tower-1 blocks own the style affine and
-return the modulated style ``s``, which the matching tower-2 block consumes
-directly, so both imaging domains share one style trajectory.
+return the modulated style ``s``, which the matching block of every other
+tower consumes directly, so all imaging domains share one style trajectory.
+With ``num_domains=1``, a k3 up-conv, the skip upsample's gain of 4 and a
+toRGB bias per channel the same module is StyleGAN2's generator (config F:
+``GeneratorConfig`` notes the fields).
 
 Port decisions:
 * activations are NCHW tensors in ``torch.channels_last`` memory, so
@@ -35,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from multi_stylegan_torch.models.config import GeneratorConfig
 from multi_stylegan_torch.nn.equalized import EqualizedLinear, FusedLeakyReLU
 from multi_stylegan_torch.nn.normalization import pixel_norm
-from multi_stylegan_torch.ops.blur import Blur, blur, blur_padding, upsample2x
+from multi_stylegan_torch.ops.blur import Blur, blur, up_blur_padding, upsample2x
 from multi_stylegan_torch.ops.modulated_conv import (
     modulated_conv2d,
     modulated_conv_transpose2d,
@@ -81,11 +84,12 @@ class ModulatedConv2d(nn.Module):
 
     ``modulation_mapping=True`` owns the style affine (bias init 1.0) and
     returns ``(y, s)``; ``False`` consumes an already-modulated style.
-    The upsampling variant is a k2 s2 transposed conv followed by the gain-4
-    blur with ``blur_padding(len(taps), 2, k)``.  Under tensor parallelism
-    (parallel/tensor.py) the weight may hold this rank's output channels:
-    modulation and demodulation are local to them, and a gather makes the
-    full output before the blur.
+    The upsampling variant is a k s2 transposed conv (k2 for Multi-StyleGAN,
+    k3 for StyleGAN2) followed by the gain-4 blur with
+    ``up_blur_padding(len(taps), k)``, which makes the output 2H.  Under
+    tensor parallelism (parallel/tensor.py) the weight may hold this rank's
+    output channels: modulation and demodulation are local to them, and a
+    gather makes the full output before the blur.
     """
 
     tp_param = ("weight", 1)
@@ -109,7 +113,7 @@ class ModulatedConv2d(nn.Module):
                 style_dim, in_channels, bias_init=1.0, device=device)
         if upsampling:
             self.blur = Blur(blur_taps, gain=4.0, device=device)
-            self.blur_pad = blur_padding(len(blur_taps), 2, k)
+            self.blur_pad = up_blur_padding(len(blur_taps), k)
 
     def forward(self, x: torch.Tensor, style: torch.Tensor):
         s = self.modulation_mapping(style) if self.has_mapping else style
@@ -168,22 +172,27 @@ class StyledConv2d(nn.Module):
 
 
 class OutputBlock(nn.Module):
-    """k1 non-demodulated modulated conv + scalar bias + blur-upsampled skip
-    (multi_stylegan_generator.py:472-526)."""
+    """k1 non-demodulated modulated conv + bias + blur-upsampled skip
+    (multi_stylegan_generator.py:472-526).  Multi-StyleGAN: one scalar bias
+    and a skip upsample of gain 1; StyleGAN2's toRGB: a bias per output
+    channel and gain 4 (``bias_per_channel``, ``skip_gain``)."""
 
     def __init__(self, in_channels: int, out_channels: int, style_dim: int,
                  upsampling: bool, modulation_mapping: bool,
-                 blur_taps: Tuple[int, ...], device=None):
+                 blur_taps: Tuple[int, ...], skip_gain: float = 1.0,
+                 bias_per_channel: bool = False, device=None):
         super().__init__()
         self.has_mapping = modulation_mapping
         self.has_upsampling = upsampling
-        self.bias = nn.Parameter(torch.zeros(1, 1, 1, 1, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            1, out_channels if bias_per_channel else 1, 1, 1, device=device))
         self.modulated_convolution = ModulatedConv2d(
             in_channels, out_channels, 1, style_dim, demodulate=False,
             upsampling=False, modulation_mapping=modulation_mapping, device=device)
         if upsampling:
-            # Reference Upsample: plain normalized kernel, NO factor**2 gain
-            self.upsampling = Blur(blur_taps, gain=1.0, device=device)
+            # the reference's Upsample: the plain normalized kernel, no
+            # factor**2 gain (skip_gain 1); StyleGAN2's Upsample has it (4)
+            self.upsampling = Blur(blur_taps, gain=skip_gain, device=device)
 
     def forward(self, x, style, skip=None):
         if self.has_mapping:
@@ -214,7 +223,8 @@ class ConstantInput(nn.Module):
 
 
 class Generator(nn.Module):
-    """Dual-tower synthesis network. Output: [B, num_domains, T, H, W] f32."""
+    """Synthesis network of ``num_domains`` towers (Multi-StyleGAN: 2).
+    Output: [B, num_domains, T, H, W] f32."""
 
     def __init__(self, config: GeneratorConfig = GeneratorConfig(), device=None):
         super().__init__()
@@ -226,17 +236,21 @@ class Generator(nn.Module):
         t = cfg.sequence_length
         h0, w0 = cfg.starting_resolution
         self.style_mapping = StyleMapping(d, cfg.depth_style_mapping, device=device)
-        for tower, mm in ((1, True), (2, False)):
+        rgb = dict(skip_gain=cfg.skip_upsample_gain, bias_per_channel=cfg.rgb_bias_per_channel,
+                   device=device)
+        for tower in range(1, cfg.num_domains + 1):
+            mm = tower == 1
             setattr(self, f"constant_input_{tower}", ConstantInput(ch[0], (h0, w0), device))
             setattr(self, f"starting_convolution_{tower}", StyledConv2d(
                 ch[0], ch[0], 3, d, False, mm, taps, device))
             setattr(self, f"starting_output_block_{tower}", OutputBlock(
-                ch[0], t, d, False, mm, taps, device))
+                ch[0], t, d, False, mm, taps, **rgb))
             convs, outs = nn.ModuleList(), nn.ModuleList()
             for i in range(cfg.n_stages):
-                convs.append(StyledConv2d(ch[i], ch[i + 1], 2, d, True, mm, taps, device))
+                convs.append(StyledConv2d(ch[i], ch[i + 1], cfg.up_kernel_size, d, True, mm,
+                                          taps, device))
                 convs.append(StyledConv2d(ch[i + 1], ch[i + 1], 3, d, False, mm, taps, device))
-                outs.append(OutputBlock(ch[i + 1], t, d, True, mm, taps, device))
+                outs.append(OutputBlock(ch[i + 1], t, d, True, mm, taps, **rgb))
             setattr(self, f"main_convolutions_{tower}", convs)
             setattr(self, f"output_blocks_{tower}", outs)
         # Fixed-noise buffers for deterministic eval (multi_stylegan_generator.py:87-95)
@@ -311,36 +325,53 @@ class Generator(nn.Module):
                    return_latents: bool = False, *, compute_dtype: Optional[str] = None,
                    remat: Optional[bool] = None):
         """wplus [B, n_latents, D] + per-layer noise -> [B, domains, T, H, W].
-        ``compute_dtype`` / ``remat`` override the config's for this call."""
+        ``compute_dtype`` / ``remat`` override the config's for this call.
+        Each resolution's blocks of every tower run inside a ``g.stage``
+        span with its ``px``."""
         cfg = self.config
         b = wplus.shape[0]
         compat = cfg.compat_tower2_output_bug
         dtype = getattr(torch, compute_dtype or cfg.compute_dtype)
         wplus = wplus.to(dtype)
         noise = [n.to(dtype) for n in noise]
-        sc1, sc2 = self.starting_convolution_1, self.starting_convolution_2
-        mc1, mc2 = self.main_convolutions_1, self.main_convolutions_2
-        ob1, ob2 = self.output_blocks_1, self.output_blocks_2
+        towers = range(1, cfg.num_domains + 1)
+
+        def blocks(name):
+            return [getattr(self, f"{name}_{t}") for t in towers]
 
         def const(ci):
             return ci.value().to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
 
         run = functools.partial(self._block, cfg.remat if remat is None else remat)
+
+        def layer(modules, px, xs, w, args, out):
+            """One block of every tower, tower t's result written to ``out[t]``
+            as it arrives (so the value it replaces is released, as a lone
+            tower's loop releases it); tower 1's maps ``w`` to the style the
+            others take."""
+            out[0], s = run(modules[0], px, xs[0], w, *args[0])
+            for t in range(1, len(modules)):
+                out[t] = run(modules[t], px, xs[t], s, *args[t])
+
+        n = cfg.num_domains
         px = cfg.starting_resolution[0]
-        out1, s = run(sc1, px, const(self.constant_input_1), wplus[:, 0], noise[0])
-        out2 = run(sc2, px, const(self.constant_input_2), s, noise[0])
-        # The tower-2 quirk is only in the stage loop (reference line 189).
-        skip1, s = run(self.starting_output_block_1, px, out1, wplus[:, 1])
-        skip2 = run(self.starting_output_block_2, px, out2, s)
+        with span("g.stage", px=px):
+            outs = [const(ci) for ci in blocks("constant_input")]
+            layer(blocks("starting_convolution"), px, outs, wplus[:, 0], [(noise[0],)] * n, outs)
+            # The tower-2 quirk is only in the stage loop (reference line 189).
+            skips = [None] * n
+            layer(blocks("starting_output_block"), px, outs, wplus[:, 1], [()] * n, skips)
+        mc, ob = blocks("main_convolutions"), blocks("output_blocks")
         for i in range(cfg.n_stages):
             px = cfg.starting_resolution[0] * 2 ** (i + 1)
-            out1, s = run(mc1[2 * i], px, out1, wplus[:, 2 * i + 1], noise[2 * i + 1])
-            out2 = run(mc2[2 * i], px, out2, s, noise[2 * i + 1])
-            out1, s = run(mc1[2 * i + 1], px, out1, wplus[:, 2 * i + 2], noise[2 * i + 2])
-            out2 = run(mc2[2 * i + 1], px, out2, s, noise[2 * i + 2])
-            skip1, s = run(ob1[i], px, out1, wplus[:, 2 * i + 3], skip1)
-            skip2 = run(ob2[i], px, out1 if compat else out2, s, skip2)
-        image = torch.stack([skip1.float(), skip2.float()], dim=1).contiguous()
+            with span("g.stage", px=px):
+                for j in (2 * i, 2 * i + 1):
+                    layer([m[j] for m in mc], px, outs, wplus[:, j + 1], [(noise[j + 1],)] * n,
+                          outs)
+                feats = [outs[0]] * n if compat else outs
+                layer([o[i] for o in ob], px, feats, wplus[:, 2 * i + 3],
+                      [(skip,) for skip in skips], skips)
+        image = torch.stack([skip.float() for skip in skips], dim=1).contiguous()
         if return_latents:
             return image, wplus
         return image

@@ -38,9 +38,21 @@ class Blur(nn.Module):
 def blur_padding(
     n_taps: int, sampling_factor_padding: int = 2, kernel_size: int = 3
 ) -> Tuple[int, int]:
-    """Padding used by ``Blur`` (multi_stylegan_generator.py:606-617)."""
+    """Padding used by ``Blur`` (multi_stylegan_generator.py:606-617): the
+    blur before a stride-2 conv, which keeps a k x k conv's output at H / 2.
+    After an upsampling conv it is right only at k = 2, where it equals
+    :func:`up_blur_padding` (at k = 3 it gives an output of 2H + 2)."""
     padding_factor = (n_taps - sampling_factor_padding) + (kernel_size - 1)
     return ((padding_factor + 1) // 2, padding_factor // 2)
+
+
+def up_blur_padding(n_taps: int, kernel_size: int) -> Tuple[int, int]:
+    """Padding of the blur after a stride-2 transposed k x k conv, whose
+    output is 2 (H - 1) + k, so that the blurred output is 2H (StyleGAN2's
+    ``ModulatedConv2d``, rosinality's stylegan2-pytorch): (2, 1) at k = 2
+    with 4 taps, (1, 1) at k = 3."""
+    p = (n_taps - 2) - (kernel_size - 1)
+    return ((p + 1) // 2 + 1, p // 2 + 1)
 
 
 def upsample_padding(n_taps: int, factor: int = 2) -> Tuple[int, int]:
@@ -58,8 +70,10 @@ def upsample2x(
     x: torch.Tensor, taps: Sequence[int] = (1, 3, 3, 1), kernel: torch.Tensor = None
 ) -> torch.Tensor:
     """2x blur-upsample of an NHWC tensor (``Upsample.forward``,
-    multi_stylegan_generator.py:568-575): the plain normalized kernel, with
-    no factor**2 gain, as the reference's ``Upsample`` has it."""
+    multi_stylegan_generator.py:568-575) by ``kernel``, by default the plain
+    normalized kernel of ``taps``, with no factor**2 gain, as the
+    reference's ``Upsample`` has it (StyleGAN2's has the gain 4 in its
+    kernel)."""
     if kernel is None:
         kernel = make_blur_kernel(taps, device=x.device)
     pad = upsample_padding(kernel.shape[0], factor=2)

@@ -63,9 +63,13 @@ def modulated_conv_transpose2d(
     """Modulated transposed conv, padding 0 (multi_stylegan_generator.py:391-403).
 
     ``F.conv_transpose2d`` with the weight as ``[Cin, Cout, kh, kw]`` and no
-    flip: for the model's k2 s2 case the windows never overlap and this is
-    exactly the JAX package's 1x1 product followed by depth-to-space.
-    Output extent = (H - 1) * stride + kh.
+    flip (rosinality's stylegan2-pytorch; NVlabs' flips it).  For
+    Multi-StyleGAN's k2 s2 case the windows never overlap and this is
+    exactly the JAX package's 1x1 product followed by depth-to-space; for
+    StyleGAN2's k3 s2 (config F) neighbouring windows overlap by one row and
+    column, which ``conv_transpose2d`` sums.  Demodulation is per output
+    channel over the whole kernel either way.  Output extent =
+    (H - 1) * stride + kh.
     """
     xs = x * style[:, :, None, None].to(x.dtype)
     w = (weight * scale).to(x.dtype).transpose(0, 1)

@@ -59,6 +59,8 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from multi_stylegan_torch.utils.profiling import span
+
 
 _N_MODEL = 1
 _DATA_GROUP = None  # None: the default group (the world), as at n_model == 1
@@ -408,7 +410,9 @@ def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]],
     tensor-parallel slices (parallel/tensor.py): those sum over the data
     axis alone, while every replicated gradient sums over all ranks and is
     divided by the model axis, so each model rank applies the same bits
-    even where its backward added in another order (cuDNN's atomics)."""
+    even where its backward added in another order (cuDNN's atomics).
+    Each bucket's all-reduce runs inside a ``ranks.all_reduce`` span with
+    its number of ``values``."""
     grads = list(grads)
     if process_count() == 1:
         return grads
@@ -427,7 +431,8 @@ def all_reduce_grads(grads: Sequence[Optional[torch.Tensor]],
         if params is not None:
             parts.append(parts[0].new_tensor([float(grads[i] is not None) for i in idx]))
         flat = torch.cat(parts)
-        dist.all_reduce(flat, group=group)
+        with span("ranks.all_reduce", values=flat.numel()):
+            dist.all_reduce(flat, group=group)
         if n > 1:
             flat.div_(n)
         seen = flat[-len(idx):].tolist() if params is not None else [1.0] * len(idx)

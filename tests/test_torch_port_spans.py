@@ -114,6 +114,12 @@ def test_trainer_step_records_its_phases(tmp_path, monkeypatch):
     assert [s.attrs for s in steps] == [{"step": 1, "lazy_d": False, "lazy_g": False},
                                         {"step": 2, "lazy_d": True, "lazy_g": True}]
     main = [r for r in recs if r is steps[0] or bench_spans.root(r) is steps[0]]
+    # every synthesis records one g.stage span a resolution, 4x4 up to
+    # 32x32, inside the phase that runs it: the D step's fakes, the G step
+    stages = [r for r in main if r.name == "g.stage"]
+    assert [r.attrs["px"] for r in stages] == [4, 8, 16, 32] * 2
+    assert [r.parent.name for r in stages] == ["train.d_step"] * 4 + ["train.g_step"] * 4
+    main = [r for r in main if r.name != "g.stage"]
     assert _tree(main) == [
         ("train.step", None),
         ("train.d_step", "train.step"), ("train.adam", "train.d_step"),
@@ -121,7 +127,8 @@ def test_trainer_step_records_its_phases(tmp_path, monkeypatch):
         ("train.adam", "train.cut_mix"),
         ("train.g_step", "train.step"), ("train.adam", "train.g_step"),
         ("train.ema", "train.step")]
-    lazy = [r for r in recs if r is steps[1] or bench_spans.root(r) is steps[1]]
+    lazy = [r for r in recs if (r is steps[1] or bench_spans.root(r) is steps[1])
+            and r.name != "g.stage"]
     assert _tree(lazy) == [
         ("train.step", None),
         ("train.d_step", "train.step"), ("train.adam", "train.d_step"),
