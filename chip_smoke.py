@@ -12,14 +12,21 @@ beside it.  Phases, each raising on failure:
               started together) and print ptxas' register lines.
 2. kernels  - hold K1 and K3 against their plain PyTorch versions on the
               card, in f32 and bf16, at every call-site shape of the
-              sampling path at batch 16, with times; K3 and its adjoint
+              sampling path at batch 16, with times (the NHWC forms, which
+              bf16 and autograd calls take); then the planar forms the
+              f32 sampling forward takes, on planar views at every site of
+              both sampling configurations (``SAMPLING_CONFIGS``, batch
+              16: config F's maps past 2^31 bytes, the C = 3 skips), each
+              against the plain version and the NHWC launch's bits, with
+              its variant, time and bound; K3 and its adjoint
               (K4) at edge cases aimed at each of upfirdn2d's variants;
               K1-K4 on zero rows (M = 0, N = 0: a data rank's empty share
               of a batch): empty results and no launch.
 3. sample   - the sampling CLI (``multi_stylegan_torch.cli.sample``, full
               256x256 generator, 32 samples at batch 16, random weights)
               with the launch counts zeroed just before: PNGs, finiteness,
-              34 K1 / 24 K3 launches per forward; one sample against the
+              34 K1 / 24 K3 launches per forward, all but the mapping's 8
+              K1 planar; one sample against the
               port on the CPU; a timed batch-16 forward.
 4. train    - the training CLI (``multi_stylegan_torch.cli.train
               --synthetic --epochs 1``: the flagship config, batch 24, 96
@@ -151,7 +158,8 @@ beside it.  Phases, each raising on failure:
               kernel (and the dx-only K2) launched in phase B.
 
 Prints one ``site`` line per call site (K3/K4 lines name the ``variant``
-of upfirdn2d the launch took; K2 has a line per form), one ``edge`` line
+of upfirdn2d the launch took; K2 has a line per form; phase 2's planar
+sites have ``"layout": "planar"``), one ``edge`` line
 per upfirdn2d edge case and one for K2's,
 one ``train_run`` line (loader, step, grid, checkpoint and metric seconds,
 checkpoint MB, peak memory, the top 15 device ops), one line for each phase
@@ -194,6 +202,9 @@ F32_FLOPS_PER_S = 67e12
 
 BATCH = 16
 SAMPLES = 32
+# The benchmark's f32 sampling configurations, whose forwards run planar.
+SAMPLING_CONFIGS = {"msg256": "gpu_bench/configs/msg256-f32.json",
+                    "sg2f1024": "gpu_bench/configs/sg2f-ffhq1024-f32.json"}
 # f32: both sides sum the same f32 products in different orders; 1e-5 of the
 # output's peak is ~100 ulps.  bf16: both round one f32 value to bf16, and
 # an order difference may flip that rounding by one bf16 ulp (2^-8 relative).
@@ -290,6 +301,57 @@ def upfirdn_sites():
     sites += [(f"skip-up r={r}", (BATCH, r // 2, r // 2, 3), 2, 1, (2, 1), 1.0, 2)
               for r in (8, 16, 32, 64, 128, 256)]
     return sites
+
+
+def sampling_sites(cfg, batch: int) -> dict:
+    """{site: launches} of K1 and K3 in one f32 forward without autograd of
+    the generator ``cfg`` at ``batch``, found on the ``meta`` device (no
+    device memory): ("K1", shape) for the 4-D launches and ("K3", shape,
+    up, down, normalized pad), shapes in (B, H, W, C) order."""
+    import collections
+
+    import torch
+
+    from multi_stylegan_torch.models.generator import Generator
+    from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
+
+    g = Generator(cfg, device="meta")
+    sites = collections.Counter()
+    f1, f3 = fused_act._forward, up_mod._upfirdn
+
+    def k1(x, bias, negative_slope, scale):
+        if x.dim() == 4:
+            sites[("K1", tuple(x.shape))] += 1
+        return fused_act.fused_leaky_relu_ref(x, bias, negative_slope, scale)
+
+    def k3(x, kernel, up, down, pad, adjoint=False):
+        sites[("K3", tuple(x.shape), up, down, tuple(pad))] += 1
+        return up_mod.upfirdn2d_ref(x, kernel, up, down, (pad[2], pad[3], pad[0], pad[1]))
+
+    fused_act._forward, up_mod._upfirdn = k1, k3
+    try:
+        z = torch.zeros((batch, cfg.latent_dimensions), device="meta")
+        noise = [torch.zeros((batch, 1, h, w), device="meta") for h, w in g._noise_shapes()]
+        with torch.no_grad():
+            g(z, noise=noise)
+    finally:
+        fused_act._forward, up_mod._upfirdn = f1, f3
+    return dict(sites)
+
+
+def site_taps(cfg, up: int, device):
+    """The taps a K3 sampling site runs: the blur after an up-conv (gain 4)
+    or the skip upsample (the config's gain)."""
+    from multi_stylegan_torch.ops.blur import make_blur_kernel
+
+    return make_blur_kernel(cfg.blur_taps, 4.0 if up == 1 else cfg.skip_upsample_gain,
+                            device=device)
+
+
+def planar(t):
+    """An NCHW-contiguous copy of a (B, H, W, C)-ordered tensor, as its
+    (B, H, W, C)-ordered view: what the generator's planar forward sends."""
+    return t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
 
 
 def upfirdn_edge_cases():
@@ -422,6 +484,8 @@ def phase_kernels(seed: int):
         report["upfirdn2d"].append(row)
         print("site", json.dumps({"kernel": "upfirdn2d", **row}), flush=True)
 
+    report["planar"] = planar_site_rows(dev, g)
+
     # K3 and K4 edge cases: correctness only, forward and the adjoint
     edge_err = {"float32": 0.0, "bfloat16": 0.0}
     for shape, up, down, pad, k, misaligned in upfirdn_edge_cases():
@@ -460,6 +524,69 @@ def phase_kernels(seed: int):
     report["upfirdn2d_edge_max_abs_err"] = edge_err
     report["zero_rows"] = zero_row_checks(dev)
     return report
+
+
+def planar_site_rows(dev, g) -> list:
+    """K1 and K3 on the planar views the f32 sampling forward sends them, at
+    every site of each of ``SAMPLING_CONFIGS`` at batch 16: against the
+    plain version, and against the NHWC launch on the same values (K1 the
+    same bits; K3 the same bits where the NHWC launch takes a tiled form),
+    with the variant, ms a launch in both layouts and the bound."""
+    import torch
+
+    from multi_stylegan_torch.cli.sample import generator_config
+    from multi_stylegan_torch.ops import fused_act, upfirdn2d as up_mod
+
+    rows = []
+    for name, path in SAMPLING_CONFIGS.items():
+        cfg = generator_config(str(REPO / path))
+        for site, n in sorted(sampling_sites(cfg, BATCH).items(), key=str):
+            b, h, w, c = site[1]
+            x = torch.randn((b, c, h, w), generator=g, device=dev).permute(0, 2, 3, 1)
+            nhwc = x.contiguous()
+            row = {"config": name, "shape": [b, h, w, c], "launches_per_forward": n}
+            label = f"planar {name} {site}"
+            if site[0] == "K1":
+                kernel = "fused_leaky_relu"
+                bias = torch.randn(c, generator=g, device=dev)
+                got = fused_act._forward(x, bias, 0.2, 1.0)
+                want = fused_act._forward(nhwc, bias, 0.2, 1.0)
+                row["max_abs_err_float32"] = check(
+                    label, got, fused_act.fused_leaky_relu_ref(x, bias, 0.2, 1.0), "float32")
+                if not (fused_act.is_planar(got) and torch.equal(got, want)):
+                    raise AssertionError(f"{label}: not the NHWC launch's bits in the planar "
+                                         "layout")
+                row["ms"] = cuda_ms(lambda: fused_act._forward(x, bias, 0.2, 1.0))
+                row["ms_nhwc"] = cuda_ms(lambda: fused_act._forward(nhwc, bias, 0.2, 1.0))
+                row["bound_ms"], row["bound_by"] = bound_ms(2 * x.numel() * 4 + c * 4,
+                                                            4 * x.numel())
+            else:
+                kernel = "upfirdn2d"
+                _, _, up, down, pad = site
+                taps = site_taps(cfg, up, dev)
+                row.update(up=up, down=down, pad=list(pad))
+                got = up_mod._upfirdn(x, taps, up, down, pad)
+                row["variant"] = up_mod.last_variant
+                if row["variant"] != f"planar-up{up}-down{down}" or not fused_act.is_planar(got):
+                    raise AssertionError(f"{label}: took {row['variant']}")
+                row["max_abs_err_float32"] = check(label, got, up_mod.upfirdn2d_ref(
+                    x, taps, up, down, (pad[2], pad[3], pad[0], pad[1])), "float32")
+                want = up_mod._upfirdn(nhwc, taps, up, down, pad)
+                row["variant_nhwc"] = up_mod.last_variant
+                row["same_bits_as_nhwc"] = bool(torch.equal(got, want))
+                if row["variant_nhwc"] != "general" and not row["same_bits_as_nhwc"]:
+                    raise AssertionError(f"{label}: not the NHWC tiled form's bits")
+                row["ms"] = cuda_ms(lambda: up_mod._upfirdn(x, taps, up, down, pad))
+                row["ms_nhwc"] = cuda_ms(lambda: up_mod._upfirdn(nhwc, taps, up, down, pad))
+                used = (upfirdn_taps_used(h, got.shape[1], up, down, pad[0], 4)
+                        * upfirdn_taps_used(w, got.shape[2], up, down, pad[2], 4))
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    (x.numel() + got.numel()) * 4 + taps.numel() * 4, 2 * used * b * c)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            del x, nhwc, got, want
+            rows.append(row)
+            print("site", json.dumps({"kernel": kernel, "layout": "planar", **row}), flush=True)
+    return rows
 
 
 def zero_row_checks(dev) -> dict:
@@ -544,13 +671,15 @@ def phase_slice(seed: int, report: dict):
         ckpt = os.path.join(tmp, "generator.pt")
         torch.save({"generator_ema": cpu_gen.state_dict()}, ckpt)
         out_dir = os.path.join(tmp, "samples")
-        fused_act.launches = 0
-        up_mod.launches = 0
+        fused_act.launches = fused_act.planar_launches = 0
+        up_mod.launches = up_mod.planar_launches = 0
         run = sample.main(["--checkpoint", ckpt, "--samples", str(SAMPLES),
                            "--batch_size", str(BATCH), "--seed", str(seed),
                            "--output", out_dir, "--device", "cuda"])
         torch.cuda.synchronize()
         counts = {"fused_leaky_relu": fused_act.launches, "upfirdn2d": up_mod.launches}
+        planar_counts = {"fused_leaky_relu": fused_act.planar_launches,
+                         "upfirdn2d": up_mod.planar_launches}
         files = sorted(os.listdir(out_dir))
     expected = sorted(f"sample_{i}_{d}_0.png" for i in range(SAMPLES) for d in ("bf", "gfp"))
     if files != expected:
@@ -561,7 +690,12 @@ def phase_slice(seed: int, report: dict):
     want = {"fused_leaky_relu": 34 * forwards, "upfirdn2d": 24 * forwards}
     if counts != want:
         raise AssertionError(f"launches {counts}, expected {want} ({forwards} forwards)")
-    print("slice cli", json.dumps({**run, "launches": counts,
+    # the f32 forward under inference_mode is planar: every launch but the
+    # mapping network's 8 K1 on [B, 512]
+    want = {"fused_leaky_relu": 26 * forwards, "upfirdn2d": 24 * forwards}
+    if planar_counts != want:
+        raise AssertionError(f"planar launches {planar_counts}, expected {want}")
+    print("slice cli", json.dumps({**run, "launches": counts, "planar_launches": planar_counts,
                                    "samples_per_s": run["samples"] / run["seconds"],
                                    "generate_samples_per_s":
                                        run["samples"] / run["generate_seconds"]}), flush=True)
@@ -588,8 +722,13 @@ def phase_slice(seed: int, report: dict):
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: gpu_gen(z16, noise=noise16), min_total_ms=1000.0)
-    kernel_ms = {k: sum(r["ms"] * r["launches_per_forward"] for r in report[k])
-                 for k in ("fused_leaky_relu", "upfirdn2d")}
+    # the forms this forward runs: the mapping's NHWC K1, the planar rest
+    planar_rows = [r for r in report["planar"] if r["config"] == "msg256"]
+    kernel_ms = {
+        "fused_leaky_relu": sum(r["ms"] * r["launches_per_forward"]
+                                for r in report["fused_leaky_relu"] if r["site"] == "mapping")
+        + sum(r["ms"] * r["launches_per_forward"] for r in planar_rows if "up" not in r),
+        "upfirdn2d": sum(r["ms"] * r["launches_per_forward"] for r in planar_rows if "up" in r)}
     # model FLOPs of the convolutions and matmuls (the two kernels add no
     # multiply-adds of that kind), counted by PyTorch from the shapes
     from torch.utils.flop_counter import FlopCounterMode
@@ -2794,7 +2933,9 @@ KERNELS = {
 def kernel_line(train_rows: dict, sample_report: dict, launches: dict) -> dict:
     """Per kernel: launches over the main-path runs; times, bound and errors
     per regularised training iteration (site time x its launches, summed)."""
-    sample_rows = {"K1": sample_report["fused_leaky_relu"], "K3": sample_report["upfirdn2d"]}
+    planar = sample_report["planar"]
+    sample_rows = {"K1": sample_report["fused_leaky_relu"] + [r for r in planar if "up" not in r],
+                   "K3": sample_report["upfirdn2d"] + [r for r in planar if "up" in r]}
     out = []
     for k, (name, route, source, replaces) in KERNELS.items():
         rows = train_rows[k]

@@ -1,4 +1,4 @@
-// upfirdn2d for NHWC tensors on Hopper (sm_90a): zero-stuff by `up`, pad or
+// upfirdn2d for NHWC and planar (NCHW) tensors on Hopper (sm_90a): zero-stuff by `up`, pad or
 // crop by (py0, py1, px0, px1), filter with the FIR taps as a true
 // convolution (flipped), keep every `down`-th sample.  Accumulates in f32 and
 // stores in the input's dtype (f32 or bf16).
@@ -54,6 +54,30 @@
 // (0.85).  Every batch-12 and batch-24 site from 64x64 up reaches 0.77-0.92
 // of the bound.  Below that, a launch costs 0.03-0.07 ms of host dispatch,
 // whatever the kernel does.
+//
+// Planar forms.  The generator's f32 forward with autograd off keeps its
+// activations NCHW-contiguous (cuDNN's f32 convolutions are NCHW kernels),
+// and the wrapper passes such a tensor as its permute(0, 2, 3, 1) view.  A
+// planar tensor is B*C independent H x W planes, and the same Variant codes
+// above kPlanarGeneral name its forms:
+//   planar general: the general kernel on the planes as [B*C, H, W, 1];
+//   planar up 1 down 1 (the blur after every up-conv, odd maps included)
+//   and planar up 2 down 1 (the skip upsamples, C = 3 among them): f32, 4x4
+//   taps, any pads.  One block walks down a column strip of one plane, a
+//   TH x TW tile at a time: it stages a tile's input rows with their halo in
+//   shared memory by 4-byte cp.async copies that zero-fill outside the
+//   plane (rows of an odd width are not 16-byte aligned), the next tile's
+//   while it computes this one's; each thread computes MY rows x 4
+//   consecutive columns, reading each staged row of its window with 16-byte
+//   (up 1) or 8-byte (up 2) shared loads, which a quarter- or half-warp of
+//   consecutive threads take without bank conflicts.  up 2 is polyphase, as
+//   above.  Each output sums the same products in the same order as the
+//   NHWC forms.  Rows are stored as one 16-byte vector a thread where Wo is
+//   a multiple of 4 and the output 16-byte aligned, else element by element.
+//   One tile for both: 32 x 32 outputs, 8 x 16 threads of 2 rows each, up
+//   to 4 tiles a block.  Offsets are 64-bit
+//   from the plane base: config F's 1024x1024 maps at batch 16 and 32
+//   channels are 2^29 elements.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,8 +86,12 @@
 
 namespace {
 
-// Variant codes, the ones ops/upfirdn2d.py::_plan emits.
-enum Variant { kGeneral = 0, kUp1Down1 = 1, kUp2Down1 = 2, kUp1Down2 = 3 };
+// Variant codes, the ones ops/upfirdn2d.py::_plan emits: NHWC forms, then
+// planar (NCHW-contiguous) ones.
+enum Variant {
+  kGeneral = 0, kUp1Down1 = 1, kUp2Down1 = 2, kUp1Down2 = 3,
+  kPlanarGeneral = 4, kPlanarUp1Down1 = 5, kPlanarUp2Down1 = 6
+};
 
 struct Shape {
   int B, H, W, C;   // input
@@ -331,10 +359,198 @@ bool tiled_ok(int variant, int vec, const void* x, const void* y, const Shape& s
          s.B <= 65535 && chunks * tiles <= INT_MAX;
 }
 
+// ----------------------------------------------------------- planar forms
+
+// 4-byte global -> shared copy; src-size 0 writes a zero and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(fill ? 4 : 0));
+}
+
+template <int N> struct FloatVec;  // an N-float shared load
+template <> struct FloatVec<2> { using type = float2; };
+template <> struct FloatVec<4> { using type = float4; };
+
+// Planar tile geometry: the tile's output rows start at O (a multiple of
+// TH); its first staged input row is I0 = (O - py0 - RY) / UP, and tap t of
+// output row m lands on staged row (m + t + RY) / UP when that divides, as
+// in Tile above (DOWN 1).  A thread's 4 columns start on staged column 4 tx
+// / UP and its MY rows on staged row MY ty / UP; it reads JX columns of JY
+// rows through NL shared loads of L floats a row.
+template <int UP, int TX, int TY, int MY, int RY, int RX>
+struct PlanarTile {
+  static constexpr int S = 4;  // output columns a thread
+  static constexpr int THREADS = TX * TY;
+  static constexpr int TH = TY * MY, TW = TX * S;
+  static constexpr int IH = (TH - 1 + kTaps - 1 + RY) / UP + 1;  // staged rows
+  static constexpr int JY = (MY - 1 + kTaps - 1 + RY) / UP + 1;  // rows a thread reads
+  static constexpr int JX = (S - 1 + kTaps - 1 + RX) / UP + 1;   // columns it reads
+  static constexpr int L = UP == 1 ? 4 : 2;
+  static constexpr int NL = (JX + L - 1) / L;
+  static constexpr int IW = (S / UP) * (TX - 1) + NL * L;  // staged columns, as read
+  static constexpr int STRIDE = (IW + 3) / 4 * 4;          // a staged row, 16-byte aligned
+  static_assert(MY % UP == 0 && S % UP == 0, "a thread's first output must sit on phase 0");
+};
+
+// Stages one tile's input rows (rows iy0 .. iy0 + IH of the plane, columns
+// ix0 .. ix0 + STRIDE) into buf; zeros outside the plane.
+template <typename G>
+__device__ __forceinline__ void stage_planar(float* buf, const float* xp, const float* x,
+                                             int iy0, int ix0, const Shape& s) {
+  for (int i = threadIdx.x; i < G::IH * G::STRIDE; i += G::THREADS) {
+    const int iy = iy0 + i / G::STRIDE, ix = ix0 + i % G::STRIDE;
+    const bool in = iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
+    cp_async4(&buf[i], in ? xp + static_cast<int64_t>(iy) * s.W + ix : x, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One block walks down a column strip of one plane: `steps` tiles of TH x
+// TW outputs, one under the other, staging the next tile's rows while it
+// computes the current one (two buffers), so loads stay in flight through
+// the arithmetic and a tile's halo rows come from cache.  Blocks run the
+// strips of a plane's row band side by side (strip fastest, then band, then
+// plane), so neighbouring strips share their halo columns in L2 too.
+template <int UP, int TX, int TY, int MY, int RY, int RX>
+__global__ void __launch_bounds__(TX * TY)
+upfirdn2d_tiled_kernel_planar(const float* __restrict__ x, const float* __restrict__ taps,
+                              float* __restrict__ y, Shape s, int steps, bool vst) {
+  using G = PlanarTile<UP, TX, TY, MY, RY, RX>;
+  using V = typename FloatVec<G::L>::type;
+  constexpr int S = G::S, STRIDE = G::STRIDE, BUF = G::IH * G::STRIDE;
+  __shared__ __align__(16) float tiles[2 * BUF];
+
+  const int strips = (s.Wo + G::TW - 1) / G::TW;
+  const int bands = ((s.Ho + G::TH - 1) / G::TH + steps - 1) / steps;
+  const int strip = blockIdx.x % strips, rest = blockIdx.x / strips;
+  const int band = rest % bands, plane = rest / bands;
+  const int ox0 = strip * G::TW;
+  const int ix0 = (ox0 - s.px0 - RX) / UP;  // exact: the numerator divides
+  const int first = band * steps;
+  const int n = min(steps, (s.Ho + G::TH - 1) / G::TH - first);
+  const float* xp = x + static_cast<int64_t>(plane) * s.H * s.W;
+  float* yp = y + static_cast<int64_t>(plane) * s.Ho * s.Wo;
+
+  // tile t's first staged row: (t TH - py0 - RY) / UP, exact as t TH is even
+  stage_planar<G>(tiles, xp, x, (first * G::TH - s.py0 - RY) / UP, ix0, s);
+  float k[kTaps * kTaps];  // flipped on use: tap (ty, tx) takes k[3-ty][3-tx]
+#pragma unroll
+  for (int i = 0; i < kTaps * kTaps; ++i) k[i] = __ldg(taps + i);
+
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int ox = ox0 + S * tx;
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) {
+      stage_planar<G>(tiles + ((t + 1) & 1) * BUF, xp, x,
+                      ((first + t + 1) * G::TH - s.py0 - RY) / UP, ix0, s);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int oy = (first + t) * G::TH + MY * ty;
+    if (ox < s.Wo && oy < s.Ho) {
+      float acc[MY][S];
+#pragma unroll
+      for (int a = 0; a < MY; ++a)
+#pragma unroll
+        for (int m = 0; m < S; ++m) acc[a][m] = 0.f;
+      const float* win = tiles + (t & 1) * BUF + (MY * ty / UP) * STRIDE + S * tx / UP;
+#pragma unroll
+      for (int jy = 0; jy < G::JY; ++jy) {
+        float v[G::NL * G::L];
+#pragma unroll
+        for (int l = 0; l < G::NL; ++l)
+          *reinterpret_cast<V*>(v + l * G::L) =
+              *reinterpret_cast<const V*>(win + jy * STRIDE + l * G::L);
+        // the NHWC forms' order: taps by staged row, then by staged column
+#pragma unroll
+        for (int jx = 0; jx < G::JX; ++jx) {
+#pragma unroll
+          for (int a = 0; a < MY; ++a) {
+            const int ky = UP * jy - a - RY;  // the tap row that lands here
+            if (ky < 0 || ky >= kTaps) continue;
+#pragma unroll
+            for (int m = 0; m < S; ++m) {
+              const int kx = UP * jx - m - RX;
+              if (kx < 0 || kx >= kTaps) continue;
+              acc[a][m] = fmaf(v[jx], k[(kTaps - 1 - ky) * kTaps + (kTaps - 1 - kx)], acc[a][m]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < MY; ++a) {
+        if (oy + a >= s.Ho) break;
+        float* yrow = yp + static_cast<int64_t>(oy + a) * s.Wo + ox;
+        if (vst) {
+          *reinterpret_cast<float4*>(yrow) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        } else {
+#pragma unroll
+          for (int m = 0; m < S; ++m)
+            if (ox + m < s.Wo) yrow[m] = acc[a][m];
+        }
+      }
+    }
+    __syncthreads();  // every read of this buffer done before it is staged again
+  }
+}
+
+// The planar tile: 8 x 16 threads, 2 rows a thread: 32 x 32 outputs; a
+// block walks up to kPlanarSteps tiles down its strip, fewer where the grid
+// would otherwise hold under kPlanarMinBlocks blocks (about four waves of
+// an H100's resident blocks: the skips' few planes of 3 channels).
+constexpr int kPlanarTX = 8, kPlanarTY = 16, kPlanarMY = 2, kPlanarSteps = 4;
+constexpr long long kPlanarMinBlocks = 8192;
+
+template <int UP, int RY, int RX>
+int launch_planar_phase(const void* x, const void* taps, void* y, const Shape& s,
+                        cudaStream_t stream) {
+  using G = PlanarTile<UP, kPlanarTX, kPlanarTY, kPlanarMY, RY, RX>;
+  const long long columns = static_cast<long long>(s.B) * s.C * ((s.Wo + G::TW - 1) / G::TW);
+  const long long tiles_y = (s.Ho + G::TH - 1) / G::TH;
+  int steps = kPlanarSteps;
+  while (steps > 1 && columns * ((tiles_y + steps - 1) / steps) < kPlanarMinBlocks) steps /= 2;
+  const bool vst = s.Wo % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  upfirdn2d_tiled_kernel_planar<UP, kPlanarTX, kPlanarTY, kPlanarMY, RY, RX>
+      <<<static_cast<unsigned>(columns * ((tiles_y + steps - 1) / steps)), G::THREADS, 0,
+         stream>>>(static_cast<const float*>(x), static_cast<const float*>(taps),
+                   static_cast<float*>(y), s, steps, vst);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int UP>
+int launch_planar(const void* x, const void* taps, void* y, const Shape& s, cudaStream_t st) {
+  if constexpr (UP == 1) {
+    return launch_planar_phase<1, 0, 0>(x, taps, y, s, st);
+  } else {
+    switch ((s.py0 & 1) * 2 + (s.px0 & 1)) {  // the pads' parities fix the phases
+      case 0: return launch_planar_phase<2, 0, 0>(x, taps, y, s, st);
+      case 1: return launch_planar_phase<2, 0, 1>(x, taps, y, s, st);
+      case 2: return launch_planar_phase<2, 1, 0>(x, taps, y, s, st);
+      default: return launch_planar_phase<2, 1, 1>(x, taps, y, s, st);
+    }
+  }
+}
+
+// The planar tiled forms' conditions, as _plan checks them (the grid at
+// its largest: a block for every 32 x 32 tile).
+bool planar_tiled_ok(int variant, int dtype, const Shape& s) {
+  const int up = variant == kPlanarUp2Down1 ? 2 : 1;
+  const long long planes = static_cast<long long>(s.B) * s.C;
+  return dtype == 0 && s.kh == kTaps && s.kw == kTaps && s.up == up && s.down == 1 &&
+         planes * ((s.Wo + 31) / 32) * ((s.Ho + 31) / 32) <= INT_MAX;
+}
+
 template <typename T>
 int launch(int variant, const void* x, const void* taps, void* y, const Shape& s,
            cudaStream_t st) {
-  if (variant != kGeneral && !tiled_ok(variant, Vec<T>::N, x, y, s))
+  if (variant >= kUp1Down1 && variant <= kUp1Down2 && !tiled_ok(variant, Vec<T>::N, x, y, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((variant == kPlanarUp1Down1 || variant == kPlanarUp2Down1) &&
+      !planar_tiled_ok(variant, sizeof(T) == 4 ? 0 : 1, s))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr bool f32 = sizeof(T) == 4;
   switch (variant) {
@@ -342,17 +558,27 @@ int launch(int variant, const void* x, const void* taps, void* y, const Shape& s
     case kUp1Down1: return launch_tiled<T, 1, 1, 16, 16, 1, f32 ? 8 : 4>(x, taps, y, s, st);
     case kUp2Down1: return launch_tiled<T, 2, 1, 16, 16, 2, f32 ? 4 : 2>(x, taps, y, s, st);
     case kUp1Down2: return launch_tiled<T, 1, 2, 8, 16, 1, f32 ? 4 : 2>(x, taps, y, s, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case kPlanarGeneral: {  // B*C planes of one channel each
+      Shape p = s;
+      p.B = s.B * s.C;
+      p.C = 1;
+      return launch_general<T>(x, taps, y, p, st);
+    }
+    case kPlanarUp1Down1: if constexpr (f32) return launch_planar<1>(x, taps, y, s, st); break;
+    case kPlanarUp2Down1: if constexpr (f32) return launch_planar<2>(x, taps, y, s, st); break;
+    default: break;
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16; variant: a Variant code from _plan.  Returns
+// dtype: 0 = f32, 1 = bf16; variant: a Variant code from _plan; the shape is
+// (B, H, W, C) whatever the layout the variant names.  Returns
 // cudaErrorInvalidValue for a variant the shape, dtype or alignment does not
 // allow, else cudaGetLastError() after the launch (0 on success); the Python
 // wrapper raises on anything but 0.
-extern "C" int upfirdn2d_nhwc(const void* x, const void* taps, void* y, int dtype, int variant,
+extern "C" int upfirdn2d_launch(const void* x, const void* taps, void* y, int dtype, int variant,
                               int B, int H, int W, int C, int Ho, int Wo, int kh, int kw,
                               int up, int down, int py0, int px0, void* stream) {
   const Shape s{B, H, W, C, Ho, Wo, kh, kw, up, down, py0, px0};

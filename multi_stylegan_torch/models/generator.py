@@ -1,4 +1,4 @@
-"""Dual-tower Multi-StyleGAN generator (PyTorch, NCHW in channels_last memory).
+"""Dual-tower Multi-StyleGAN generator (PyTorch, NCHW: planar or channels_last).
 
 Architecture: reference multi_stylegan/multi_stylegan_generator.py and the
 JAX package's models/generator.py.  Tower-1 blocks own the style affine and
@@ -9,9 +9,13 @@ toRGB bias per channel the same module is StyleGAN2's generator (config F:
 ``GeneratorConfig`` notes the fields).
 
 Port decisions:
-* activations are NCHW tensors in ``torch.channels_last`` memory, so
-  ``x.permute(0, 2, 3, 1)`` is a contiguous NHWC view that goes to the
-  kernels (fused leaky-ReLU, upfirdn2d) with no copy;
+* activations are NCHW tensors in one of two layouts, chosen once a call by
+  :func:`layout`: planar (NCHW-contiguous) for f32 with autograd off, where
+  cuDNN's f32 convolutions are NCHW kernels, and ``torch.channels_last``
+  otherwise, where the bf16 convolutions are NHWC kernels and the gradient
+  kernels (K2, K4) take only NHWC.  Either way ``x.permute(0, 2, 3, 1)`` is
+  a (B, H, W, C)-ordered view that goes to the kernels (fused leaky-ReLU,
+  upfirdn2d) with no copy, and they tell the layouts apart by its strides;
 * per-sample modulated weights never exist (ops/modulated_conv.py);
 * state-dict keys and shapes are the reference's, exactly what the JAX
   package's ``export_generator`` emits, so a reference checkpoint's
@@ -37,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from multi_stylegan_torch.models.config import GeneratorConfig
 from multi_stylegan_torch.nn.equalized import EqualizedLinear, FusedLeakyReLU
+from multi_stylegan_torch.nn.layout import FORMATS, layout
 from multi_stylegan_torch.nn.normalization import pixel_norm
 from multi_stylegan_torch.ops.blur import Blur, blur, up_blur_padding, upsample2x
 from multi_stylegan_torch.ops.modulated_conv import (
@@ -46,11 +51,9 @@ from multi_stylegan_torch.ops.modulated_conv import (
 from multi_stylegan_torch.parallel import tensor as tp
 from multi_stylegan_torch.utils.profiling import span
 
-_CL = torch.channels_last
-
-
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous(memory_format=_CL).permute(0, 2, 3, 1)
+    """The (B, H, W, C)-ordered view of ``x`` in its call's layout."""
+    return x.contiguous(memory_format=FORMATS[layout(x.dtype)]).permute(0, 2, 3, 1)
 
 
 def _nchw(y: torch.Tensor) -> torch.Tensor:
@@ -327,11 +330,12 @@ class Generator(nn.Module):
         """wplus [B, n_latents, D] + per-layer noise -> [B, domains, T, H, W].
         ``compute_dtype`` / ``remat`` override the config's for this call.
         Each resolution's blocks of every tower run inside a ``g.stage``
-        span with its ``px``."""
+        span with its ``px`` and the call's :func:`layout`."""
         cfg = self.config
         b = wplus.shape[0]
         compat = cfg.compat_tower2_output_bug
         dtype = getattr(torch, compute_dtype or cfg.compute_dtype)
+        lay = layout(dtype)
         wplus = wplus.to(dtype)
         noise = [n.to(dtype) for n in noise]
         towers = range(1, cfg.num_domains + 1)
@@ -340,7 +344,8 @@ class Generator(nn.Module):
             return [getattr(self, f"{name}_{t}") for t in towers]
 
         def const(ci):
-            return ci.value().to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=_CL)
+            return ci.value().to(dtype).expand(b, -1, -1, -1).contiguous(
+                memory_format=FORMATS[lay])
 
         run = functools.partial(self._block, cfg.remat if remat is None else remat)
 
@@ -355,7 +360,7 @@ class Generator(nn.Module):
 
         n = cfg.num_domains
         px = cfg.starting_resolution[0]
-        with span("g.stage", px=px):
+        with span("g.stage", px=px, layout=lay):
             outs = [const(ci) for ci in blocks("constant_input")]
             layer(blocks("starting_convolution"), px, outs, wplus[:, 0], [(noise[0],)] * n, outs)
             # The tower-2 quirk is only in the stage loop (reference line 189).
@@ -364,7 +369,7 @@ class Generator(nn.Module):
         mc, ob = blocks("main_convolutions"), blocks("output_blocks")
         for i in range(cfg.n_stages):
             px = cfg.starting_resolution[0] * 2 ** (i + 1)
-            with span("g.stage", px=px):
+            with span("g.stage", px=px, layout=lay):
                 for j in (2 * i, 2 * i + 1):
                     layer([m[j] for m in mc], px, outs, wplus[:, j + 1], [(noise[j + 1],)] * n,
                           outs)
@@ -391,8 +396,8 @@ class Generator(nn.Module):
         """Convenience forward mirroring the reference signature
         (multi_stylegan_generator.py:114-205).  ``generator`` supplies the
         random inject index and noise where those are drawn here."""
-        with span("g.forward"):
-            cfg = self.config
+        cfg = self.config
+        with span("g.forward", layout=layout(getattr(torch, cfg.compute_dtype))):
             if input_is_latent and z.dim() == 3:
                 wplus = z
             else:

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multi_stylegan_torch.nn.layout import layout
 from multi_stylegan_torch.ops.fused_act import fused_leaky_relu
 from multi_stylegan_torch.parallel import tensor as tp
 
@@ -135,11 +136,15 @@ class EqualizedConv1d(nn.Module):
 
 
 class FusedLeakyReLU(nn.Module):
-    """Bias-owning fused leaky-ReLU on [B, C] or NCHW (channels_last) input.
+    """Bias-owning fused leaky-ReLU on [B, C] or NCHW input.
 
     Module default scale is 1.0, not sqrt(2): the reference module default
     that every model use goes through (op_static/fused_act.py:77).  Runs on
-    ``fused_leaky_relu``'s autograd Function (K1 forward, K2 backward).
+    ``fused_leaky_relu``'s autograd Function (K1 forward, K2 backward).  An
+    NCHW input goes to the kernel as its ``permute(0, 2, 3, 1)`` view: an
+    NCHW-contiguous one as it is (K1's planar form) where the call's
+    :func:`~multi_stylegan_torch.nn.layout.layout` is planar, anything else
+    in channels_last memory (K2 takes only NHWC).
     """
 
     def __init__(self, channels: int, negative_slope: float = 0.2,
@@ -150,9 +155,10 @@ class FusedLeakyReLU(nn.Module):
         self.scale = scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dim() == 4:  # NCHW channels_last: NHWC view for the kernel, no copy
-            x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-            y = fused_leaky_relu(x, self.bias,
+        if x.dim() == 4:  # planar or channels_last: the kernel's view, no copy
+            if not (layout(x.dtype) == "planar" and x.is_contiguous()):
+                x = x.contiguous(memory_format=torch.channels_last)
+            y = fused_leaky_relu(x.permute(0, 2, 3, 1), self.bias,
                                  self.negative_slope, self.scale)
             return y.permute(0, 3, 1, 2)
         return fused_leaky_relu(x, self.bias, self.negative_slope, self.scale)

@@ -4,6 +4,9 @@ gradient and double gradient.
 ``y = where(x + b >= 0, x + b, slope * (x + b)) * scale`` on an NHWC or
 ``[B, C]`` tensor, computed in f32 and stored in ``x``'s dtype; the bias is
 always f32 (reference op_static/fused_bias_act_kernel.cu, LeakyReLU case).
+The forward also takes a planar tensor: the ``permute(0, 2, 3, 1)`` view of
+an NCHW-contiguous one, which the generator's f32 forward with autograd off
+keeps; its output comes in the same layout.
 
 The gradient takes its mask from the forward **output**, as the reference
 CUDA grad does: ``dx = g * (out >= 0 ? 1 : slope) * scale`` stored in g's
@@ -32,7 +35,9 @@ launch.  Any other empty tensor raises.
   It reads ``x`` once and writes ``y`` once (4 f32 operations per element
   against 8 bytes): bound by bytes over the card's 3.35 TB/s.  A Triton
   kernel, one masked ``[BLOCK_M, BLOCK_C]`` tile per program over the
-  ``[M, C]`` view.
+  ``[M, C]`` view; its planar form ``flr_fwd_planar`` takes a ``[BLOCK_P,
+  BLOCK_HW]`` tile of the ``[B*C, H*W]`` planes, the bias indexed by plane,
+  with the same operations in the same order, so the same bits.
 * K2 replaces ``pallas_kernels.py::_flr_grad_kernel`` together with the bias
   sum of ``_flr_2d_bwd``: the CUDA C++ kernel ``csrc/fused_act.cu`` (its
   header says what bounds it and how), built by ``ops/cuda_build.py`` and
@@ -56,9 +61,11 @@ import torch
 from multi_stylegan_torch.ops import cuda_build
 
 # Launches of each kernel since import (or since a caller reset them):
-# ``launches`` for K1, ``grad_launches`` for K2 (one per call, either form),
+# ``launches`` for K1 (either layout), ``planar_launches`` for the K1 calls
+# on a planar tensor, ``grad_launches`` for K2 (one per call, either form),
 # ``grad_dx_only_launches`` for the K2 calls of the dx-only form.
 launches = 0
+planar_launches = 0
 grad_launches = 0
 grad_dx_only_launches = 0
 
@@ -185,13 +192,16 @@ def fused_leaky_relu(
     autograd to any order.
 
     CPU tensors take the plain versions; CUDA tensors launch K1 forward and
-    K2 backward (contiguous channels-last input, f32 or bf16; f32 bias).
+    K2 backward (f32 or bf16; f32 bias).  K1 takes a contiguous NHWC or
+    ``[M, C]`` tensor, or a planar one (the ``permute(0, 2, 3, 1)`` view of
+    an NCHW-contiguous tensor), and returns the output in its layout; K2
+    takes NHWC, so a forward that autograd records gets an NHWC input.
     """
     return FusedLeakyReLUFunction.apply(x, bias, float(negative_slope), float(scale))
 
 
 def _kernels():
-    """Build K1's Triton kernel at first use."""
+    """Build K1's Triton kernels at first use: (NHWC, planar)."""
     global _KERNELS, tl
     if _KERNELS is None:
         import triton
@@ -212,8 +222,44 @@ def _kernels():
             y = tl.where(y >= 0, y, y * slope) * scale
             tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-        _KERNELS = flr_fwd
+        @triton.jit
+        def flr_fwd_planar(x_ptr, b_ptr, y_ptr, P, HW, HW_BLOCKS, C, slope, scale,
+                           BLOCK_P: tl.constexpr, BLOCK_HW: tl.constexpr):
+            # a 1-D grid, as flr_fwd's rows, so any number of planes fits;
+            # consecutive programs walk along a plane's H*W
+            pid = tl.program_id(0)
+            cols = (pid % HW_BLOCKS) * BLOCK_HW + tl.arange(0, BLOCK_HW)
+            planes = (pid // HW_BLOCKS) * BLOCK_P + tl.arange(0, BLOCK_P)
+            plane_ok = planes < P
+            mask = plane_ok[:, None] & (cols[None, :] < HW)
+            # 64-bit offsets: config F's 1024^2 maps hold 2^29 elements at
+            # batch 16 and 32 channels
+            offs = planes[:, None].to(tl.int64) * HW + cols[None, :]
+            x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+            b = tl.load(b_ptr + planes % C, mask=plane_ok, other=0.0)
+            y = x + b[:, None]
+            y = tl.where(y >= 0, y, y * slope) * scale
+            tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
+
+        _KERNELS = (flr_fwd, flr_fwd_planar)
     return _KERNELS
+
+
+def is_planar(t: torch.Tensor) -> bool:
+    """Whether a (B, H, W, C)-ordered 4-D tensor is the ``permute(0, 2, 3,
+    1)`` view of an NCHW-contiguous tensor and not NHWC-contiguous itself."""
+    return t.dim() == 4 and not t.is_contiguous() and t.permute(0, 3, 1, 2).is_contiguous()
+
+
+def _planar_grid(planes: int, hw: int):
+    """(programs, programs a plane band, BLOCK_P, BLOCK_HW) of
+    ``flr_fwd_planar`` over ``planes`` planes of ``hw`` elements: tiles of
+    4096 elements, a band of BLOCK_P planes spanning the plane's H*W in
+    programs of BLOCK_HW, on a 1-D grid."""
+    block_hw = min(_next_pow2(hw), 4096)
+    block_p = max(1, 4096 // block_hw)
+    hw_blocks = -(-hw // block_hw)
+    return hw_blocks * -(-planes // block_p), hw_blocks, block_p, block_hw
 
 
 def no_rows(t: torch.Tensor) -> bool:
@@ -223,24 +269,27 @@ def no_rows(t: torch.Tensor) -> bool:
     return t.dim() >= 2 and t.shape[0] == 0 and all(n > 0 for n in t.shape[1:])
 
 
-def _check_2d(name, t):
+def _check_2d(name, t, planar=False):
+    """(rows, channels) of a K1 or K2 input; ``planar`` admits K1's planar
+    form (K2 takes only NHWC)."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: unsupported dtype {t.dtype}")
     if t.dim() < 1 or (t.numel() == 0 and not no_rows(t)):
         raise ValueError(f"{name}: empty or 0-d input {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if not (planar or t.is_contiguous()):
         raise ValueError(
             f"{name}: the channel axis must be last and the tensor contiguous "
             "(pass NCHW activations as x.permute(0, 2, 3, 1) of a channels_last "
-            "tensor)"
+            "tensor; the forward also takes that view of an NCHW-contiguous one)"
         )
     c = t.shape[-1]
     return t.numel() // c, c
 
 
 def _fused_leaky_relu_cuda(x, bias, negative_slope, scale):
-    global launches
-    m, c = _check_2d("fused_leaky_relu", x)
+    global launches, planar_launches
+    planar = is_planar(x)
+    m, c = _check_2d("fused_leaky_relu", x, planar)
     if bias is None:
         bias = torch.zeros(c, dtype=torch.float32, device=x.device)
     if bias.shape != (c,) or bias.dtype != torch.float32 or bias.device != x.device:
@@ -249,15 +298,24 @@ def _fused_leaky_relu_cuda(x, bias, negative_slope, scale):
             f"{bias.dtype} {tuple(bias.shape)} on {bias.device}"
         )
     bias = bias.detach().contiguous()
-    y = torch.empty_like(x)
+    y = torch.empty_like(x)  # keeps a planar view planar
     if m == 0:  # no rows: nothing to compute, and a zero-size grid cannot launch
         return y
-    block_c = min(_next_pow2(c), 256)
-    block_m = max(1, 4096 // block_c)
-    grid = (-(-m // block_m), -(-c // block_c))
-    with torch.cuda.device(x.device):
-        _kernels()[grid](x, bias, y, m, c, negative_slope, scale,
-                            BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
+    if planar:
+        hw = x.shape[1] * x.shape[2]
+        planes = m // hw * c
+        programs, hw_blocks, block_p, block_hw = _planar_grid(planes, hw)
+        with torch.cuda.device(x.device):
+            _kernels()[1][(programs,)](x, bias, y, planes, hw, hw_blocks, c, negative_slope,
+                                       scale, BLOCK_P=block_p, BLOCK_HW=block_hw, num_warps=4)
+        planar_launches += 1
+    else:
+        block_c = min(_next_pow2(c), 256)
+        block_m = max(1, 4096 // block_c)
+        grid = (-(-m // block_m), -(-c // block_c))
+        with torch.cuda.device(x.device):
+            _kernels()[0][grid](x, bias, y, m, c, negative_slope, scale,
+                                BLOCK_M=block_m, BLOCK_C=block_c, num_warps=4)
     launches += 1
     return y
 

@@ -1,5 +1,5 @@
-"""upfirdn2d on NHWC tensors: upsample (zero-stuff), FIR filter, downsample,
-with its gradient and double gradient.
+"""upfirdn2d on (B, H, W, C)-ordered tensors: upsample (zero-stuff), FIR
+filter, downsample, with its gradient and double gradient.
 
 Reference semantics: multi_stylegan/op_static/upfirdn2d.py:148-191 and its
 CUDA kernel; the output extent per spatial dim is
@@ -14,11 +14,18 @@ Two versions of the same op live here:
   it is the oracle the kernel is held against.
 * the CUDA C++ kernels ``csrc/upfirdn2d.cu`` for CUDA tensors (its header
   says what they replace, what bounds them and how), built at first use by
-  ``ops/cuda_build.py`` and called through ``ctypes``.  :func:`_plan` picks
-  one of its variants per launch: a tiled form for each of (up 1, down 1),
+  ``ops/cuda_build.py`` and called through ``ctypes``.  The kernels take two
+  layouts, told apart by the strides of the (B, H, W, C)-ordered input:
+  NHWC (a contiguous tensor: the ``permute(0, 2, 3, 1)`` view of a
+  channels_last one) and planar (the ``permute(0, 2, 3, 1)`` view of an
+  NCHW-contiguous tensor, which the generator's f32 forward with autograd
+  off keeps); the output comes in the input's layout.  :func:`_plan` picks
+  one variant per launch.  NHWC: a tiled form for each of (up 1, down 1),
   (up 2, down 1) and (up 1, down 2) with 4x4 taps, C a multiple of the
-  16-byte vector and 16-byte aligned tensors, else the general form; the C
-  side refuses a variant the call does not allow.
+  16-byte vector and 16-byte aligned tensors, else the general form.
+  Planar: a tiled form for (up 1, down 1) and (up 2, down 1) with 4x4 taps
+  in f32, any C, else the general form over the B*C planes.  The C side
+  refuses a variant the call does not allow.
 
 Gradients mirror the reference's autograd pair ``UpFirDn2d`` /
 ``UpFirDn2dBackward`` (op_static/upfirdn2d.py:22-145), as the JAX package's
@@ -41,18 +48,24 @@ import torch
 import torch.nn.functional as F
 
 from multi_stylegan_torch.ops import cuda_build
+from multi_stylegan_torch.ops.fused_act import is_planar
 
 # Launches of the CUDA kernel since import (or since a caller reset them):
 # ``launches`` for forward calls (K3), ``grad_launches`` for the adjoint
-# launches of the backward (K4).
+# launches of the backward (K4), ``planar_launches`` for the launches of
+# either on a planar tensor.
 launches = 0
 grad_launches = 0
+planar_launches = 0
 # The variant the last launch took, a name from VARIANTS.
 last_variant = None
 
 # Variant codes of csrc/upfirdn2d.cu (enum Variant), by index.
-VARIANTS = ("general", "up1-down1", "up2-down1", "up1-down2")
+VARIANTS = ("general", "up1-down1", "up2-down1", "up1-down2",
+            "planar-general", "planar-up1-down1", "planar-up2-down1")
 _TILED = {(1, 1): 1, (2, 1): 2, (1, 2): 3}
+_PLANAR_GENERAL = 4
+_PLANAR_TILED = {(1, 1): 5, (2, 1): 6}
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,9 +101,10 @@ def upfirdn2d_ref(
     down: int = 1,
     pad: Union[int, Sequence[int]] = (0, 0),
 ) -> torch.Tensor:
-    """Plain PyTorch upfirdn2d: [B, H, W, C] -> [B, Ho, Wo, C], f32 inside."""
+    """Plain PyTorch upfirdn2d: [B, H, W, C] -> [B, Ho, Wo, C], f32 inside
+    (a planar input gives a planar output)."""
     if x.dim() != 4:
-        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+        raise ValueError(f"expected (B, H, W, C) input, got shape {tuple(x.shape)}")
     py0, py1, px0, px1 = _normalize_pad(pad)
     b, h, w, c = x.shape
     kh, kw = kernel.shape
@@ -173,28 +187,42 @@ def upfirdn2d(
     down: int = 1,
     pad: Union[int, Sequence[int]] = (0, 0),
 ) -> torch.Tensor:
-    """upfirdn2d on an NHWC tensor with [kh, kw] f32 taps, with autograd to
-    any order in ``x``.
+    """upfirdn2d on a (B, H, W, C)-ordered tensor with [kh, kw] f32 taps,
+    with autograd to any order in ``x``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (NHWC input - the ``permute(0, 2, 3, 1)`` view of a channels_last
-    tensor - in f32 or bf16; contiguous f32 taps) forward and backward.
+    forward and backward (f32 or bf16; contiguous f32 taps) on the
+    ``permute(0, 2, 3, 1)`` view of a channels_last tensor (NHWC) or of an
+    NCHW-contiguous one (planar), and return the output in the same layout.
     """
     if x.dim() != 4:
-        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+        raise ValueError(f"expected (B, H, W, C) input, got shape {tuple(x.shape)}")
     if int(up) < 1 or int(down) < 1:
         raise ValueError(f"upfirdn2d: up and down must be >= 1, got {up}, {down}")
     return UpFirDn2d.apply(x, kernel.detach(), int(up), int(down), _normalize_pad(pad))
 
 
-def _plan(shape, dtype, up, down, kh, kw, pad, ptrs) -> int:
-    """The kernel variant (an index of VARIANTS) for one launch on an NHWC
-    input of ``shape`` with normalized pads: a tiled form where (up, down)
-    is one of its pairs, the taps are 4x4, C is a multiple of the 16-byte
-    vector and every pointer in ``ptrs`` (input, output) is 16-byte aligned,
-    within the grid's limits; else 0, the general form.  The C side checks
-    the same conditions (``tiled_ok``) and refuses a mismatch."""
+def _plan(shape, dtype, up, down, kh, kw, pad, ptrs, planar=False) -> int:
+    """The kernel variant (an index of VARIANTS) for one launch on a
+    (B, H, W, C)-ordered input of ``shape`` with normalized pads.  NHWC: a
+    tiled form where (up, down) is one of its pairs, the taps are 4x4, C is
+    a multiple of the 16-byte vector and every pointer in ``ptrs`` (input,
+    output) is 16-byte aligned, within the grid's limits; else 0, the
+    general form.  ``planar``: a planar tiled form where (up, down) is one
+    of its pairs, the taps are 4x4 and the dtype f32, within the grid's
+    limits (at most a block for every 32 x 32 output tile); else the planar
+    general form.  The C side checks the same conditions
+    (``tiled_ok``, ``planar_tiled_ok``) and refuses a mismatch."""
     b, h, w, c = shape
+    if planar:
+        variant = _PLANAR_TILED.get((up, down))
+        if not variant or dtype != torch.float32 or (kh, kw) != (4, 4):
+            return _PLANAR_GENERAL
+        ho = out_size(h, up, down, pad[0], pad[1], kh)
+        wo = out_size(w, up, down, pad[2], pad[3], kw)
+        if b * c * -(-wo // 32) * -(-ho // 32) > _INT_MAX:
+            return _PLANAR_GENERAL
+        return variant
     variant = _TILED.get((up, down), 0)
     vec = _VEC.get(dtype)
     if not variant or vec is None or (kh, kw) != (4, 4) or c % vec:
@@ -213,7 +241,7 @@ def _library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(cuda_build.build("upfirdn2d")))
-        fn = lib.upfirdn2d_nhwc
+        fn = lib.upfirdn2d_launch
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
@@ -221,15 +249,16 @@ def _library():
 
 
 def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
-    global launches, grad_launches, last_variant
+    global launches, grad_launches, planar_launches, last_variant
     py0, py1, px0, px1 = pad
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"upfirdn2d: unsupported dtype {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
+    planar = is_planar(x)
+    if x.dim() != 4 or not (planar or x.is_contiguous()):
         raise ValueError(
-            "upfirdn2d: expected a contiguous NHWC tensor (the "
-            f"permute(0, 2, 3, 1) view of a channels_last one), got shape "
-            f"{tuple(x.shape)} strides {x.stride()}"
+            "upfirdn2d: expected the permute(0, 2, 3, 1) view of a channels_last "
+            "tensor (a contiguous NHWC one) or of an NCHW-contiguous one (planar), "
+            f"got shape {tuple(x.shape)} strides {x.stride()}"
         )
     if (kernel.dim() != 2 or kernel.dtype != torch.float32
             or kernel.device != x.device or not kernel.is_contiguous()):
@@ -247,14 +276,19 @@ def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
     wo = out_size(w, up, down, px0, px1, kw)
     if ho <= 0 or wo <= 0 or h == 0 or w == 0 or c == 0:
         raise ValueError(f"upfirdn2d: empty input or output {tuple(x.shape)} -> {b}x{ho}x{wo}x{c}")
-    if wo * c > _INT_MAX or b * max(h, ho) > _INT_MAX or max(h, w) * up > _INT_MAX:
+    if (wo * c > _INT_MAX or b * (c if planar else 1) * max(h, ho) > _INT_MAX
+            or max(h, w) * up > _INT_MAX):
         raise ValueError(f"upfirdn2d: shape {tuple(x.shape)} exceeds the kernel's int range")
-    y = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
+    if planar:
+        y = torch.empty((b, c, ho, wo), dtype=x.dtype, device=x.device).permute(0, 2, 3, 1)
+    else:
+        y = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
     if b == 0:  # no rows: nothing to compute, and a zero-size grid cannot launch
         return y
-    variant = _plan(x.shape, x.dtype, up, down, kh, kw, pad, (x.data_ptr(), y.data_ptr()))
+    variant = _plan(x.shape, x.dtype, up, down, kh, kw, pad, (x.data_ptr(), y.data_ptr()),
+                    planar)
     with torch.cuda.device(x.device):
-        rc = _library().upfirdn2d_nhwc(
+        rc = _library().upfirdn2d_launch(
             x.data_ptr(), kernel.data_ptr(), y.data_ptr(), _DTYPE_CODES[x.dtype], variant,
             b, h, w, c, ho, wo, kh, kw, up, down, py0, px0,
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -267,4 +301,6 @@ def _upfirdn2d_cuda(x, kernel, up, down, pad, adjoint=False):
         grad_launches += 1
     else:
         launches += 1
+    if planar:
+        planar_launches += 1
     return y

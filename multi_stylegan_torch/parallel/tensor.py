@@ -55,14 +55,15 @@ def _block(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The full tensor whose blocks on ``dim`` the model ranks hold: each
-    writes its block into zeros laid out with ``dim`` minor (channels-last
-    for NCHW), then a sum, which is exact."""
-    n, c = mesh.model_world(), x.shape[dim]
-    minor = x.movedim(dim, -1)
-    buf = minor.new_zeros((*minor.shape[:-1], c * n))
-    buf[..., mesh.model_rank() * c:(mesh.model_rank() + 1) * c] = minor
+    writes its block into zeros laid out as ``x`` is (its dims in the same
+    order in memory: planar for the generator's planar activations,
+    channels-last for channels_last ones), then a sum, which is exact."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))  # outermost first
+    buf = x.new_zeros([x.shape[d] * (mesh.model_world() if d == dim else 1) for d in order])
+    full = buf.permute(*(order.index(d) for d in range(x.dim())))
+    _block(full, dim).copy_(x)
     dist.all_reduce(buf, group=mesh.model_group())
-    return buf.movedim(-1, dim)
+    return full
 
 
 class _Gather(torch.autograd.Function):

@@ -296,12 +296,14 @@ def test_cuda_calls_with_gradients_go_through_the_kernels(cuda):
 def test_kernels_refuse_what_they_do_not_take(cuda):
     nchw = torch.randn(1, 16, 8, 8, device=cuda)
     taps = make_blur_kernel(device=cuda)
+    # every other column: neither the NHWC nor the planar layout
+    strided = torch.randn(1, 16, 8, 16, device=cuda)[..., ::2].permute(0, 2, 3, 1)
     with pytest.raises(ValueError, match="NHWC"):
-        up_mod.upfirdn2d(nchw.permute(0, 2, 3, 1), taps, pad=(2, 1))
+        up_mod.upfirdn2d(strided, taps, pad=(2, 1))
     with pytest.raises(ValueError, match="taps"):
         up_mod.upfirdn2d(nchw.contiguous(), taps.double(), pad=(2, 1))
     with pytest.raises(ValueError, match="channel axis"):
-        fused_act.fused_leaky_relu(nchw.permute(0, 2, 3, 1), torch.zeros(16, device=cuda))
+        fused_act.fused_leaky_relu(strided, torch.zeros(16, device=cuda))
     with pytest.raises(TypeError):
         fused_act.fused_leaky_relu(nchw.double(), None)
 

@@ -150,16 +150,24 @@ def test_what_the_tiled_forms_do_not_take_goes_general(case, dtype):
 
 def test_c_source_accepts_the_codes_plan_emits():
     """The enum and the launch switch of csrc/upfirdn2d.cu against VARIANTS,
-    and every code _plan emits over a sweep of calls is one the C side
-    launches with the call's (up, down)."""
+    and every code _plan emits over a sweep of calls, in either layout, is
+    one the C side launches with the call's (up, down)."""
     src = SOURCE.read_text()
     enum = dict(re.findall(r"(k\w+) = (\d+)", re.search(r"enum Variant \{([^}]*)\}", src)[1]))
     tiled = {int(enum[name]): (int(up), int(down)) for name, up, down in
              re.findall(r"case (k\w+): return launch_tiled<T, (\d), (\d),", src)}
+    planar = {int(enum[name]): (int(up), 1) for name, up in
+              re.findall(r"case (k\w+): if constexpr \(f32\) return launch_planar<(\d)>", src)}
     assert int(enum["kGeneral"]) == 0 and "case kGeneral: return launch_general" in src
+    assert int(enum["kPlanarGeneral"]) == up_mod._PLANAR_GENERAL
+    assert re.search(r"case kPlanarGeneral: \{[^}]*launch_general<T>", src)
     assert tiled == {code: pair for pair, code in up_mod._TILED.items()}
-    assert sorted(set(tiled) | {0}) == list(range(len(up_mod.VARIANTS)))
-    assert [f"up{u}-down{d}" for u, d in (tiled[c] for c in sorted(tiled))] == list(up_mod.VARIANTS[1:])
+    assert planar == {code: pair for pair, code in up_mod._PLANAR_TILED.items()}
+    codes = set(tiled) | set(planar) | {0, up_mod._PLANAR_GENERAL}
+    assert sorted(codes) == list(range(len(up_mod.VARIANTS))) == sorted(map(int, enum.values()))
+    assert [f"up{u}-down{d}" for u, d in (tiled[c] for c in sorted(tiled))] == list(up_mod.VARIANTS[1:4])
+    assert up_mod.VARIANTS[up_mod._PLANAR_GENERAL] == "planar-general"
+    assert all(up_mod.VARIANTS[c] == f"planar-up{u}-down{d}" for c, (u, d) in planar.items())
     vec = dict(re.findall(r"struct Vec<(\w+)> \{ static constexpr int N = (\d+); \}", src))
     assert {"float": 4, "__nv_bfloat16": 8} == {k: int(v) for k, v in vec.items()}
     assert {torch.float32: 4, torch.bfloat16: 8} == up_mod._VEC
@@ -170,4 +178,8 @@ def test_c_source_accepts_the_codes_plan_emits():
         code = up_mod._plan((2, 17, 23, c), dtype, up, down, k, k, (1, 2, 1, 2), (ALIGNED + off, ALIGNED))
         emitted.add(code)
         assert code == 0 or tiled[code] == (up, down)
-    assert emitted == set(range(len(up_mod.VARIANTS)))
+        code = up_mod._plan((2, 17, 23, c), dtype, up, down, k, k, (1, 2, 1, 2),
+                            (ALIGNED + off, ALIGNED), planar=True)
+        emitted.add(code)
+        assert code == up_mod._PLANAR_GENERAL or planar[code] == (up, down)
+    assert emitted == codes
